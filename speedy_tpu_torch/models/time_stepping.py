@@ -1,0 +1,90 @@
+"""Leapfrog time stepping with Robert-Williams filtering
+(source/time_stepping.f90). The three-step bootstrap (first_step) uses
+ImplicitConsts built for dt/2 and dt; the run continues with 2dt."""
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+from ..config import ModelConfig
+from ..constants import TDRS
+from ..ops import spectral as sp
+from .hdiffusion import DiffusionConsts, apply_diffusion
+from .implicit import ImplicitConsts
+from .state import PrognosticState
+from .tendencies import DynConsts, get_tendencies
+
+
+class OrographicCorrection(NamedTuple):
+    """Daily horizontal orographic-correction fields (forcing.f90:73-99)."""
+    tcorh: torch.Tensor  # [mx, nx, 2]
+    qcorh: torch.Tensor  # [mx, nx, 2]
+
+
+def _step_field(cfg: ModelConfig, sc, j1: int, dt: float, eps: float,
+                field2: torch.Tensor, fdt: torch.Tensor) -> torch.Tensor:
+    """Robert-Williams filtered leapfrog update of one two-time-level field
+    (time_stepping.f90:142-167); ``field2`` has the time axis in front."""
+    if cfg.ix == 4 * (cfg.il // 2):
+        fdt = sp.trunct(sc, fdt)
+    fold = field2[j1 - 1]
+    fnew = field2[0] + dt * fdt
+    f1 = fold + cfg.wil * eps * (field2[0] - 2.0 * fold + fnew)
+    f2 = fnew - (1.0 - cfg.wil) * eps * (f1 - 2.0 * fold + fnew)
+    return torch.stack([f1, f2], dim=0)
+
+
+def step(cfg: ModelConfig, dyn: DynConsts, dc: DiffusionConsts,
+         ic: ImplicitConsts, state: PrognosticState,
+         j1: int, j2: int, dt: float,
+         corr: OrographicCorrection,
+         physics_fn=None) -> Tuple[PrognosticState, object]:
+    """One time step (time_stepping.f90:35-122). j1=1, j2=1: forward step;
+    j1=1, j2=2: first leapfrog; j1=2, j2=2: filtered leapfrog."""
+    sc = dyn.sc
+    vordt, divdt, tdt, psdt, trdt, aux = get_tendencies(
+        cfg, dyn, ic, state, j2 - 1, physics_fn)
+
+    # horizontal diffusion (time_stepping.f90:62-102)
+    vordt = apply_diffusion(state.vor[0], vordt, dc.dmp, ic.dmp1)
+    divdt = apply_diffusion(state.div[0], divdt, dc.dmpd, ic.dmp1d)
+    ctmp = state.t[0] + corr.tcorh[None] * dc.tcorv[:, None, None, None]
+    tdt = apply_diffusion(ctmp, tdt, dc.dmp, ic.dmp1)
+
+    # stratospheric zonal-mean wind drag at the top level (:77-81)
+    sdrag = 1.0 / (TDRS * 3600.0)
+    vordt[0, 0] += -sdrag * state.vor[0, 0, 0]
+    divdt[0, 0] += -sdrag * state.div[0, 0, 0]
+
+    vordt = apply_diffusion(state.vor[0], vordt, dc.dmps, ic.dmp1s)
+    divdt = apply_diffusion(state.div[0], divdt, dc.dmps, ic.dmp1s)
+    tdt = apply_diffusion(ctmp, tdt, dc.dmps, ic.dmp1s)
+
+    # humidity diffusion with orographic correction; the reference uses
+    # the divergence coefficients here (time_stepping.f90:96)
+    qtmp = state.tr[0, 0] + corr.qcorh[None] * dc.qcorv[:, None, None, None]
+    trdt = trdt.clone()
+    trdt[0] = apply_diffusion(qtmp, trdt[0], dc.dmpd, ic.dmp1d)
+
+    # Robert-Williams leapfrog (time_stepping.f90:104-121)
+    eps = 0.0 if j1 == 1 else cfg.rob
+    stepf = lambda f2, fdt: _step_field(cfg, sc, j1, dt, eps, f2, fdt)
+    tr = torch.stack([stepf(state.tr[:, i], trdt[i]) for i in range(cfg.ntr)],
+                     dim=1)
+    return PrognosticState(vor=stepf(state.vor, vordt),
+                           div=stepf(state.div, divdt),
+                           t=stepf(state.t, tdt), ps=stepf(state.ps, psdt),
+                           tr=tr), aux
+
+
+def first_step(cfg: ModelConfig, dyn: DynConsts, dc: DiffusionConsts,
+               ic_half: ImplicitConsts, ic_full: ImplicitConsts,
+               state: PrognosticState, corr: OrographicCorrection,
+               physics_fn=None) -> Tuple[PrognosticState, object]:
+    """Leapfrog bootstrap (time_stepping.f90:12-24): a forward half step,
+    then a first leapfrog step."""
+    state, aux = step(cfg, dyn, dc, ic_half, state, 1, 1, 0.5 * cfg.delt,
+                      corr, physics_fn)
+    return step(cfg, dyn, dc, ic_full, state, 1, 2, cfg.delt, corr,
+                physics_fn)

@@ -1,0 +1,69 @@
+"""Build and load the package's CUDA sources.
+
+Each library is compiled once with ``nvcc`` into a shared object with a
+plain C interface and loaded with ``ctypes``. The build happens at first
+use, into ``speedy_tpu_torch/csrc/build/`` (git-ignored), under a name
+keyed by a hash of the sources and flags, so an edited source is rebuilt
+and an unchanged one is reused within a checkout.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "csrc")
+BUILD_DIR = os.path.join(CSRC, "build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_loaded = {}
+build_seconds = {}
+build_log = {}
+
+
+def nvcc_path() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc"), shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME)")
+
+
+def _library_path(name: str, sources) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        with open(os.path.join(CSRC, src), "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
+
+
+def build(name: str, sources) -> str:
+    """Compile ``sources`` (file names under csrc/) into a shared library
+    unless it exists already; returns its path."""
+    path = _library_path(name, sources)
+    if os.path.exists(path):
+        return path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+           *[os.path.join(CSRC, s) for s in sources]]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    build_seconds[name] = time.perf_counter() - t0
+    build_log[name] = res.stdout + res.stderr
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}:\n{res.stderr}")
+    os.replace(tmp, path)
+    return path
+
+
+def load(name: str, sources) -> ctypes.CDLL:
+    """The loaded library ``name``, built first if needed."""
+    if name not in _loaded:
+        _loaded[name] = ctypes.CDLL(build(name, sources))
+    return _loaded[name]
