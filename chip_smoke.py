@@ -106,7 +106,7 @@ def physics_case(model, compute_sw):
                                        1, phi0)[1]
     ins = fused.kernel_inputs(cfg, model.pp, compute_sw, daily, state.surf,
                               state.rad, pg)
-    return ins, fused.argument_block(model.pp)
+    return ins, model.pp.kernel_block
 
 
 def perturb(ins, seed=0):
@@ -118,8 +118,10 @@ def perturb(ins, seed=0):
     dev = lambda a: torch.as_tensor(a, dtype=ins[2].dtype,
                                     device=ins[2].device)
     out = list(ins)
-    out[0] = ins[0] + dev(rng.normal(0.0, 5.0, shape))
-    out[1] = ins[1] + dev(rng.normal(0.0, 5.0, shape))
+    # the winds are drawn at every level, as the model's fields would be,
+    # and enter at the lowest
+    out[0] = ins[0] + dev(rng.normal(0.0, 5.0, shape)[-1])
+    out[1] = ins[1] + dev(rng.normal(0.0, 5.0, shape)[-1])
     out[2] = ins[2] + dev(rng.normal(0.0, 1.5, shape))
     out[3] = ins[3] * dev(1.0 + rng.uniform(0.0, 0.6, shape))
     return out
@@ -127,7 +129,8 @@ def perturb(ins, seed=0):
 
 def bound_ms(ins, outs, dtype, kx, ncol):
     """Least time for the call: bytes (inputs read once, outputs written
-    once) over HBM bandwidth vs operations over the peak rate. Operations
+    once; the winds are passed at the lowest level only, the one the chain
+    reads) over HBM bandwidth vs operations over the peak rate. Operations
     are a lower estimate of 100 per level per column."""
     nbytes = sum(x.numel() * x.element_size() for x in ins + outs)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3

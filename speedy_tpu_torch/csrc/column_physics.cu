@@ -13,10 +13,11 @@
 // diffusion, with the surface fluxes injected at level kx.
 //
 // What bounds it: the kernel is memory-bound. Per call at T30 (kx=8, 48x96
-// columns) it reads 5 [kx] fields, 11 surface fields and (non-SW steps) the
-// carried radiation state, and writes 21 (27 on SW steps) outputs: about
-// 0.72 M values, ~2.9 MB in fp32, ~0.9 us at 3.35 TB/s. The arithmetic is
-// a few thousand operations per column, far below the card's rate.
+// columns) it reads 3 [kx] fields, the lowest-level winds, 11 surface
+// fields and (non-SW steps) the carried radiation state, and writes 21 (27
+// on SW steps) outputs: about 0.65 M values, ~2.6 MB in fp32, ~0.78 us at
+// 3.35 TB/s. The arithmetic is a few thousand operations per column, far
+// below the card's rate.
 //
 // Design: one thread per column, so the level sweeps are plain loops over
 // registers/local arrays, and the masked static sweeps of the JAX code
@@ -134,8 +135,8 @@ column_physics_kernel(Pointers p, ColumnTables<T> c, int il, int ix) {
     qg[k] = mx(in(3)[k * S + col], T(0.0));
     phig[k] = in(4)[k * S + col];
   }
-  const T ua = in(0)[(KX - 1) * S + col];
-  const T va = in(1)[(KX - 1) * S + col];
+  const T ua = in(0)[col];  // winds: the lowest level only, [il, ix]
+  const T va = in(1)[col];
   const T pslg = in(5)[col], albsfc = in(6)[col], alb_l = in(7)[col],
           alb_s = in(8)[col], snowc = in(9)[col], soilw_am = in(10)[col],
           stl_am = in(11)[col], sst_am = in(12)[col], forog = in(13)[col],

@@ -28,8 +28,9 @@ from .shortwave import RadiationState
 
 @dataclasses.dataclass(frozen=True)
 class PhysicsParams:
-    """Vertical tables (physics.f90:12-39), numpy in the run dtype, and
-    the time-invariant [il, ix] fields as device tensors."""
+    """Vertical tables (physics.f90:12-39), numpy in the run dtype, the
+    time-invariant [il, ix] fields as device tensors, and the
+    column-physics kernel's float64 argument block built from them."""
     fsg: np.ndarray       # [kx]
     dhs: np.ndarray       # [kx]
     sigh: np.ndarray      # [kx+1] half-level sigma (= hsg)
@@ -42,6 +43,7 @@ class PhysicsParams:
     fmask_l: torch.Tensor  # [il, ix]
     fmask_s: torch.Tensor  # [il, ix]
     phis0: torch.Tensor   # [il, ix] filtered surface geopotential
+    kernel_block: Optional[np.ndarray] = None  # fused.argument_block
 
 
 def build_physics_params(cfg: ModelConfig, geom_np: dict,
@@ -62,7 +64,7 @@ def build_physics_params(cfg: ModelConfig, geom_np: dict,
     t = np.float64 if cfg.precision == "fp64" else np.float32
     cast = lambda a: np.asarray(a, dtype=t)
     dev = lambda a: torch.as_tensor(cast(a), device=device)
-    return PhysicsParams(
+    pp = PhysicsParams(
         fsg=cast(fsg), dhs=cast(dhs), sigh=cast(sigh), sigl=cast(sigl),
         wvi2=cast(wvi2), grdsig=cast(grdsig), grdscp=cast(grdscp),
         # the reference passes the spectrally FILTERED surface geopotential
@@ -70,6 +72,8 @@ def build_physics_params(cfg: ModelConfig, geom_np: dict,
         forog=dev(surface_mod.orographic_drag_factor(phis0)),
         coa=dev(geom_np["coa"]), fmask_l=dev(fmask_l), fmask_s=dev(fmask_s),
         phis0=dev(phis0))
+    from .fused import argument_block
+    return dataclasses.replace(pp, kernel_block=argument_block(pp))
 
 
 class DailyForcing(NamedTuple):

@@ -36,11 +36,13 @@ def reset_launches() -> None:
 
 
 def kernel_inputs(cfg, pp, compute_sw, daily, surf, rad, pg) -> list:
-    """The kernel's inputs in its order, contiguous: 5 x [kx, il, ix],
-    11 x [il, ix], 6 x [il] (the [il, 1] fields and coa), ablco2 as [1];
-    on non-SW steps also tau2 [4, kx, il, ix], stratc [2, il, ix], tt_rsw
-    [kx, il, ix] and ssrd [il, ix]."""
-    ins = [pg.ug, pg.vg, pg.tg, pg.qg, pg.phig,
+    """The kernel's inputs in its order, contiguous: the lowest-level
+    winds ug, vg as [il, ix] (the chain reads no other level of them),
+    tg, qg, phig as [kx, il, ix], 11 x [il, ix], 6 x [il] (the [il, 1]
+    fields and coa), ablco2 as [1]; on non-SW steps also tau2
+    [4, kx, il, ix], stratc [2, il, ix], tt_rsw [kx, il, ix] and ssrd
+    [il, ix]."""
+    ins = [pg.ug[-1], pg.vg[-1], pg.tg, pg.qg, pg.phig,
            pg.pslg, daily.albsfc, daily.alb_l, daily.alb_s, daily.snowc,
            daily.soilw_am, surf.stl_am, surf.sst_am,
            pp.forog, pp.phis0, pp.fmask_l,
@@ -72,12 +74,15 @@ def _unflatten(outs, compute_sw):
 
 def plain_outputs(cfg, pp, compute_sw: bool, ins: list) -> list:
     """The kernel's plain twin: grid_physics_core on the kernel's inputs
-    (kernel_inputs order), returning the flat list of outputs."""
+    (kernel_inputs order), returning the flat list of outputs. The
+    lowest-level winds are broadcast over the levels: the chain reads only
+    the lowest."""
     from . import grid_physics_core
     col = lambda x: x.reshape(cfg.il, 1)
+    lev = lambda x: x.expand(cfg.kx, cfg.il, cfg.ix)
     a = ins
     outs = grid_physics_core(
-        cfg, pp, compute_sw, a[0], a[1], a[2], a[3], a[4], a[5],
+        cfg, pp, compute_sw, lev(a[0]), lev(a[1]), a[2], a[3], a[4], a[5],
         col(a[16]), col(a[17]), col(a[18]), col(a[19]), col(a[20]), a[6],
         a[22].reshape(()), a[7], a[8], a[9], a[10], a[11], a[12],
         a[13], a[21], a[14], a[15],
@@ -119,16 +124,22 @@ def argument_block(pp) -> np.ndarray:
     return np.concatenate([tab.ravel(), scal])
 
 
+_launch_fn = None
+
+
 def _launcher():
-    """The C entry point of the kernel library, built at first use."""
-    from ...utils import native
-    lib = native.load("column_physics", SOURCES)
-    fn = lib.column_physics_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p]
-    return fn
+    """The C entry point of the kernel library, built and bound at first
+    use."""
+    global _launch_fn
+    if _launch_fn is None:
+        from ...utils import native
+        fn = native.load("column_physics", SOURCES).column_physics_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+        _launch_fn = fn
+    return _launch_fn
 
 
 def _check(x: torch.Tensor, shape, dtype, device, i: int) -> None:
@@ -142,7 +153,8 @@ def _check(x: torch.Tensor, shape, dtype, device, i: int) -> None:
 
 def launch_kernel(cfg, compute_sw: bool, ins: list, block: np.ndarray):
     """Launch the kernel on CUDA tensors ``ins`` (kernel_inputs order)
-    with the argument block; returns the flat list of outputs."""
+    with the float64 argument block, on the tensors' device and its
+    current stream; returns the flat list of outputs."""
     global launches, launches_sw
     kx, il, ix = cfg.kx, cfg.il, cfg.ix
     dtype, device = ins[2].dtype, ins[2].device
@@ -156,22 +168,27 @@ def launch_kernel(cfg, compute_sw: bool, ins: list, block: np.ndarray):
     n_in = N_IN_SW if compute_sw else N_IN
     if len(ins) != n_in:
         raise ValueError(f"{len(ins)} inputs, expected {n_in}")
-    in_shapes = ([(kx, il, ix)] * 5 + [(il, ix)] * 11 + [(il,)] * 6 + [(1,)]
+    in_shapes = ([(il, ix)] * 2 + [(kx, il, ix)] * 3 + [(il, ix)] * 11
+                 + [(il,)] * 6 + [(1,)]
                  + [(4, kx, il, ix), (2, il, ix), (kx, il, ix), (il, ix)])
     for i, (x, s) in enumerate(zip(ins, in_shapes)):
         _check(x, s, dtype, device, i)
     outs = [torch.empty(s, dtype=dtype, device=device)
             for s in output_shapes(kx, il, ix, compute_sw)]
 
+    if block.dtype != np.float64 or not block.flags.c_contiguous:
+        raise ValueError("the argument block must be contiguous float64")
+
     fn = _launcher()
     in_ptrs = (ctypes.c_void_p * N_IN)(*[x.data_ptr() for x in ins])
     out_ptrs = (ctypes.c_void_p * N_OUT_SW)(*[o.data_ptr() for o in outs])
-    block = np.ascontiguousarray(block, dtype=np.float64)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = fn(1 if dtype == torch.float64 else 0, kx, int(compute_sw), il, ix,
-             ctypes.cast(in_ptrs, ctypes.c_void_p),
-             ctypes.cast(out_ptrs, ctypes.c_void_p),
-             block.ctypes.data_as(ctypes.c_void_p), ctypes.c_void_p(stream))
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(1 if dtype == torch.float64 else 0, kx, int(compute_sw), il,
+                 ix, ctypes.cast(in_ptrs, ctypes.c_void_p),
+                 ctypes.cast(out_ptrs, ctypes.c_void_p),
+                 block.ctypes.data_as(ctypes.c_void_p),
+                 ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"column_physics kernel launch failed: CUDA "
                            f"error {err}")
@@ -188,5 +205,5 @@ def fused_grid_physics(cfg, pp, compute_sw, daily, surf, rad, pg):
     if pg.tg.device.type == "cpu":
         outs = plain_outputs(cfg, pp, compute_sw, ins)
     else:
-        outs = launch_kernel(cfg, compute_sw, ins, argument_block(pp))
+        outs = launch_kernel(cfg, compute_sw, ins, pp.kernel_block)
     return _unflatten(outs, compute_sw)

@@ -1,9 +1,9 @@
 """Where one simulated day's time goes on the card.
 
-    python -m speedy_tpu_torch.profile_day [--precision fp32] [--days 1]
+    python -m speedy_tpu_torch.profile_day [--precision fp32]
 
 Builds the T30 model on CUDA from the stand-in boundary set, runs one warm
-day, then times ``--days`` more days on the host clock (ending in a
+day, then times one more day on the host clock (ending in a
 synchronise) and traces them with torch.profiler. Prints the wall time per
 step, the device time summed over CUDA kernels, the device's busy share,
 the number of kernel launches per step, and the kernels that take the most
@@ -22,8 +22,6 @@ import torch
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--precision", default="fp32", choices=("fp32", "fp64"))
-    ap.add_argument("--days", type=int, default=1)
-    ap.add_argument("--top", type=int, default=12)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_day: CUDA is not available", file=sys.stderr)
@@ -38,11 +36,11 @@ def main(argv=None) -> int:
                   bc_arrays=synthetic_boundaries(0))
     start = cal.Datetime(1982, 1, 1)
     state = model.run_fast(start, 1)          # warm-up day
-    nsteps = model.cfg.nsteps * args.days
+    nsteps = model.cfg.nsteps
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    state = model.run_fast(start, args.days, state=state)
+    state = model.run_fast(start, 1, state=state)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
 
@@ -50,7 +48,7 @@ def main(argv=None) -> int:
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t1 = time.perf_counter()
-        model.run_fast(start, args.days, state=state)
+        model.run_fast(start, 1, state=state)
         torch.cuda.synchronize()
         wall_prof = time.perf_counter() - t1
 
@@ -61,13 +59,13 @@ def main(argv=None) -> int:
     for e in kernels:
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:args.top]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     k1 = sum(t for name, (n, t) in by_name.items()
              if "column_physics" in name)
     card = torch.cuda.get_device_name(0)
-    print(f"{card}: {args.precision} T30, {args.days} day(s), "
+    print(f"{card}: {args.precision} T30, 1 day, "
           f"{wall / nsteps * 1e3:.3f} ms/step wall "
-          f"({args.days / (wall / 60.0):.1f} sim-days/min); profiled "
+          f"({60.0 / wall:.1f} sim-days/min); profiled "
           f"{wall_prof / nsteps * 1e3:.3f} ms/step")
     if not kernels:
         print("device time: not measured (the profiler saw no CUDA kernels)")

@@ -4,7 +4,7 @@ The model reads six boundary files (orography, land-sea mask, albedo,
 vegetation, and monthly land temperature, snow, soil water, SST and sea
 ice). Where the real files are not available, ``synthetic_boundaries``
 builds smooth fields with the same layout: ``{file: {var: float32
-[..., il, ix]}}``, latitude north -> south as in the files, months in
+[..., 48, 96]}}``, latitude north -> south as in the files, months in
 front. Every value lies inside the range that ``forchk`` accepts for its
 field. The fields are a stand-in for missing data, not a climatology: a
 few smooth continents with orography, an Antarctic ice sheet, an
@@ -26,16 +26,19 @@ FILES = {
 }
 
 
-def synthetic_boundaries(seed: int = 0, il: int = 48, ix: int = 96) -> dict:
-    """Stand-in boundary set on the il x ix Gaussian-seed grid."""
+IL, IX = 48, 96   # the grid of the boundary files
+
+
+def synthetic_boundaries(seed: int = 0) -> dict:
+    """Stand-in boundary set on the 48 x 96 Gaussian-seed grid."""
     rng = np.random.default_rng(seed)
-    lat = np.degrees(gaussian_seed_lats(il))[::-1][:, None]   # N -> S
-    lon = (np.arange(ix) * 360.0 / ix)[None, :]
+    lat = np.degrees(gaussian_seed_lats(IL))[::-1][:, None]   # N -> S
+    lon = (np.arange(IX) * 360.0 / IX)[None, :]
     slat = np.sin(np.radians(lat))
 
     # continents: smooth super-Gaussian blobs at seeded positions
-    land = np.zeros((il, ix))
-    hill = np.zeros((il, ix))
+    land = np.zeros((IL, IX))
+    hill = np.zeros((IL, IX))
     for _ in range(5):
         lat0 = rng.uniform(-45.0, 65.0)
         lon0 = rng.uniform(0.0, 360.0)
@@ -70,7 +73,7 @@ def synthetic_boundaries(seed: int = 0, il: int = 48, ix: int = 96) -> dict:
     icec = np.where(sst < 274.0, icec, 0.0)
 
     def f32(a, months=False):
-        shape = ((12,) if months else ()) + (il, ix)
+        shape = ((12,) if months else ()) + (IL, IX)
         return np.ascontiguousarray(np.broadcast_to(a, shape),
                                     dtype=np.float32)
 

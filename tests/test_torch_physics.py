@@ -180,6 +180,9 @@ def test_argument_block_layout(setup):
     tm = setup[5]
     block = fused.argument_block(tm.pp)
     assert block.shape == (fused.N_TABLES * fused.MAXL + fused.N_SCALARS,)
+    # built once with the model, and what the wrapper hands the kernel
+    np.testing.assert_array_equal(tm.pp.kernel_block, block)
+    assert tm.pp.kernel_block.dtype == np.float64
     tab = block[:fused.N_TABLES * fused.MAXL].reshape(fused.N_TABLES,
                                                       fused.MAXL)
     kx = tm.cfg.kx
