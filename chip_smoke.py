@@ -4,7 +4,8 @@
 
 Phases (each prints one line or more; any failure exits non-zero):
  1. the card's name and power limit (nvidia-smi); TF32 off;
- 2. build the CUDA kernels from the sources in this checkout;
+ 2. build the CUDA kernels from the sources in this checkout, one nvcc
+    process per source, all started together;
  3. the column-physics kernel against its plain PyTorch chain on the card,
     on the physics inputs of the booted T30 state and on the same inputs
     with seeded noise (the rest state does not convect), SW and non-SW
@@ -13,38 +14,50 @@ Phases (each prints one line or more; any failure exits non-zero):
  4. boot + 6 steps in fp64 on the CPU (plain physics) and on CUDA (kernel):
     every prognostic field must agree;
  5. the main path: Model(t30(), device="cuda") in fp32, initialize +
-    run_fast for 2 days with the stability guard, counting kernel launches.
+    run_fast for 2 days with the stability guard, counting kernel launches;
+ 6. the transform benchmark's path (speedy_tpu_torch.bench_transform at
+    T30, fp32), counting kernel launches; then the spectral-transform
+    kernels (synthesis, analysis), through their public wrappers, against
+    their plain einsum chain on the card at every T30 batch of that path in
+    fp64 and fp32 and at T85, B=256, in fp32, with their times (the
+    benchmark's for T30 fp32), the einsum chain's and the bound;
+ 7. SPPT: boot + 6 fp64 steps with SPPT on, CPU against CUDA, fed the same
+    innovations from a numpy seed; then 2 fp32 days with SPPT on the card;
+ 8. the run path: Model.run over one day with the NetCDF writer, and a
+    checkpoint at day 1 resumed to day 2 against a straight 2-day run
+    (SPPT on).
 The last two lines are the kernel table and the result line. Runs on the
 stand-in boundary set (speedy_tpu_torch/utils/synthetic_bc.py).
 """
 from __future__ import annotations
 
 import json
+import os
 import re
-import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
+from speedy_tpu_torch.bench_transform import (
+    HBM_BYTES_PER_S, PEAK_FLOPS, card_line, time_graph_ms, time_ms)
+
 FP64_BOUND = 1e-12        # field-normalised, kernel vs plain, fp64
 FP32_BOUND = 1e-4         # field-normalised, kernel vs plain, fp32
 STEP_BOUND = 1e-10        # relative, CPU vs CUDA prognostics after 6 steps
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}  # non-tensor-core
+TRANSFORM_BOUND = {torch.float64: 1e-12, torch.float32: 1e-5}  # field-normalised
+# the batches the T30 step issues (57/34 synthesis, 48/25 analysis) and 256
+BENCH_BATCHES = [25, 34, 48, 57, 256]
+# every batch the transform benchmark's path runs at T30, and T85 at 256
+TRANSFORM_CASES = (("t30", tuple(BENCH_BATCHES)), ("t85", (256,)))
+SPPT_NOISE_SEED = 12345
 N_TIMED = 100
 OUTPUT_NAMES = ["utend", "vtend", "ttend", "qtend", "precnv", "precls",
                 "cbmf", "slrd", "slr", "olr", "ustr", "vstr", "shf", "evap",
                 "slru", "hfluxn", "tsfc", "tskin", "u0", "v0", "t0", "tau2",
                 "stratc", "tt_rsw", "ssrd", "ssr", "tsr"]
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def ptxas_summary(log: str):
@@ -53,9 +66,13 @@ def ptxas_summary(log: str):
     for line in log.splitlines():
         m = re.search(r"Function properties for \S*column_physics_kernelI"
                       r"([fd])Li(\d)ELb([01])E", line)
+        t = re.search(r"Function properties for \S*(synthesis|analysis)"
+                      r"_kernelI([fd])E", line)
         if m:
             name = (f"{'fp32' if m.group(1) == 'f' else 'fp64'} kx={m.group(2)}"
                     f" {'sw' if m.group(3) == '1' else 'nosw'}")
+        elif t:
+            name = f"{t.group(1)} {'fp32' if t.group(2) == 'f' else 'fp64'}"
         elif name and "spill" in line:
             spill = line.strip()
         elif name and "Used" in line:
@@ -138,36 +155,192 @@ def bound_ms(ins, outs, dtype, kx, ncol):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def time_ms(fn, n):
-    """Device time per call of fn over n calls, CUDA events, after warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(n):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / n
+def bench_path(reps):
+    """[6] The transform benchmark's path, as a user runs it, with the
+    launch counts set to 0 just before and read just after. Returns (ok,
+    records keyed by batch, synthesis launches, analysis launches)."""
+    from speedy_tpu_torch import bench_transform
+    from speedy_tpu_torch.ops import fused_transforms as ft
+    ft.reset_launches()
+    records = bench_transform.run("t30", BENCH_BATCHES, reps)
+    n_syn, n_ana = ft.launches_syn, ft.launches_ana
+    # per batch and direction: warm-up + reps eager, warm-up + reps captured
+    expect = len(records) * 2 * (reps + 1)
+    print(f"[6] bench_transform t30 ({len(records)} batches, {reps} reps): "
+          f"launches synthesis {n_syn}, analysis {n_ana}, expected {expect}")
+    ok = n_syn == expect and n_ana == expect
+    return ok, {r["batch"]: r for r in records}, n_syn, n_ana
 
 
-def time_graph_ms(fn, n):
-    """Per-call time of fn captured n times in one CUDA graph, so the
-    host-side argument handling of the wrapper is not in the timing."""
-    fn()
+def transform_phase(bench):
+    """[6] The spectral-transform kernels, through their public wrappers,
+    against their plain einsum chain on the card: every batch of
+    TRANSFORM_CASES, fp64 and fp32 at T30, fp32 at T85. The T30 fp32 times
+    are those of the benchmark's path (``bench``, its records by batch);
+    the others are timed here. Returns (ok, rows by (name, preset,
+    precision, batch))."""
+    from speedy_tpu_torch.bench_transform import bound_ms as transform_bound
+    from speedy_tpu_torch.config import from_preset
+    from speedy_tpu_torch.geometry import build_geometry_np
+    from speedy_tpu_torch.ops import fused_transforms as ft
+    from speedy_tpu_torch.ops import spectral as sp
+
+    ok, rows = True, {}
+    rng = np.random.default_rng(1)
+    for preset, batches in TRANSFORM_CASES:
+        sc64 = None
+        for prec in (("fp64", "fp32") if preset == "t30" else ("fp32",)):
+            cfg = from_preset(preset, precision=prec)
+            dtype = cfg.rdtype
+            sc = sp.build_spectral(cfg, build_geometry_np(cfg), "cuda")
+            if sc64 is None:
+                sc64 = sp.build_spectral(from_preset(preset, precision="fp64"),
+                                         build_geometry_np(cfg), "cuda")
+            dims = (cfg.mx, cfg.nx, cfg.il, cfg.ix)
+            for b in batches:
+                spec = torch.as_tensor(rng.standard_normal((b,) + dims[:2]
+                                                           + (2,)),
+                                       dtype=dtype, device="cuda")
+                grid = torch.as_tensor(rng.standard_normal((b,) + dims[2:]),
+                                       dtype=dtype, device="cuda")
+                for name, d, x, wrapper, plain in (
+                        ("spectral_synthesis", "syn", spec,
+                         ft.fused_spec_to_grid, sp.spec_to_grid),
+                        ("spectral_analysis", "ana", grid,
+                         ft.fused_grid_to_spec, sp.grid_to_spec)):
+                    k, p = wrapper(sc, x), plain(sc, x)
+                    # the fp64 chain on the same values: both the kernel and
+                    # its twin carry the working type's rounding
+                    p64 = plain(sc64, x.double())
+                    torch.cuda.synchronize()
+                    (err, abs_err), = field_errors([k], [p])
+                    (err64, _), = field_errors([k], [p64])
+                    (twin64, _), = field_errors([p], [p64])
+                    finite = bool(torch.isfinite(k).all())
+                    bound = TRANSFORM_BOUND[dtype]
+                    rec = bench.get(b) if (preset, prec) == ("t30", "fp32") \
+                        else None
+                    if rec is not None:
+                        ms, plain_ms, lib_ms = (rec[f"{d}_{t}_us"] * 1e-3
+                                                for t in ("kernel_graph",
+                                                          "einsum",
+                                                          "einsum_graph"))
+                    else:
+                        ms = time_graph_ms(lambda: wrapper(sc, x), N_TIMED)
+                        plain_ms = time_ms(lambda: plain(sc, x), N_TIMED)
+                        lib_ms = time_graph_ms(lambda: plain(sc, x), N_TIMED)
+                    b_ms, b_by = transform_bound(d, sc, b)
+                    smem = ft.smem_bytes(d, cfg.mx, cfg.il,
+                                         x.element_size())
+                    good = err <= bound and finite
+                    ok &= good
+                    print(f"[6] {name} {preset} {prec} B={b}: error "
+                          f"{err:.3e} (bound {bound:.0e}) finite={finite}, "
+                          f"against the fp64 chain kernel {err64:.2e} twin "
+                          f"{twin64:.2e}; kernel {ms * 1e3:.3f} us (graph), "
+                          f"einsum chain {lib_ms * 1e3:.3f} us (graph) "
+                          f"{plain_ms * 1e3:.3f} us (eager), bound "
+                          f"{b_ms * 1e3:.4f} us ({b_by}); {smem} B shared "
+                          f"memory/block {'ok' if good else 'FAILED'}")
+                    rows[(name, preset, prec, b)] = dict(
+                        ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                        bound_ms=b_ms, bound_by=b_by, max_abs_err=abs_err)
+    return ok, rows
+
+
+def sppt_noise(seed):
+    """A source of standard-normal innovations from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    return lambda shape: rng.standard_normal(shape)
+
+
+def sppt_phase(bc, start, card):
+    """[7] SPPT: CPU vs CUDA in fp64 with the same innovations, then two
+    fp32 days on the card."""
+    from speedy_tpu_torch.config import t30
+    from speedy_tpu_torch.models.model import Model
+    from speedy_tpu_torch.models.physics import fused
+    states = {}
+    for dev in ("cpu", "cuda"):
+        m = Model(t30(precision="fp64", sppt_on=True), device=dev,
+                  bc_arrays=bc, sppt_noise=sppt_noise(SPPT_NOISE_SEED))
+        s = m.initialize(start)
+        daily = m.daily_forcing(s, start, start)
+        for i in range(6):
+            s, _ = m.one_step(s, daily, i % m.cfg.nstrad == 0)
+        states[dev] = dict(s.prog._asdict(), sppt=s.sppt.spec)
+    worst = {f: ((a - states["cuda"][f].cpu()).abs().max()
+                 / a.abs().max()).item() for f, a in states["cpu"].items()}
+    ok = max(worst.values()) <= STEP_BOUND
+    print("[7] SPPT fp64 boot+6 steps CPU vs CUDA: "
+          + " ".join(f"{k}={v:.2e}" for k, v in worst.items())
+          + f" (bound {STEP_BOUND:.0e}) {'ok' if ok else 'FAILED'}")
+
+    model = Model(t30(sppt_on=True), device="cuda", bc_arrays=bc)
+    fused.reset_launches()
     torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(n):
-            fn()
-    graph.replay()
+    t0 = time.perf_counter()
+    state = model.initialize(start)
+    t1 = time.perf_counter()
+    state = model.run_fast(start, 2, state=state)
     torch.cuda.synchronize()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / n
+    t2 = time.perf_counter()
+    n_launch, expect = fused.launches, 2 + 2 * model.cfg.nsteps
+    finite = all(bool(torch.isfinite(x).all()) for x in state.prog)
+    print(f"[7] SPPT fp32 T30 2 days: {2 / ((t2 - t1) / 60.0):.1f} "
+          f"sim-days/min (run_fast {t2 - t1:.3f} s, initialize "
+          f"{t1 - t0:.3f} s) on {card}; K1 launches {n_launch} (sw "
+          f"{fused.launches_sw}), expected {expect}; finite={finite}")
+    return ok and finite and n_launch == expect
+
+
+def run_phase(bc, start):
+    """[8] Model.run with the NetCDF writer over one day; a checkpoint at
+    day 1 resumed to day 2 equals a straight 2-day run (SPPT on)."""
+    from scipy.io import netcdf_file
+    from speedy_tpu_torch.config import t30
+    from speedy_tpu_torch.models.model import Model
+    from speedy_tpu_torch.utils import calendar as cal
+    from speedy_tpu_torch.utils.checkpoint import load_checkpoint
+    from speedy_tpu_torch.utils.output import NetCDFWriter
+
+    model = Model(t30(sppt_on=True), device="cuda", bc_arrays=bc)
+    day1, day2 = cal.next_day(start), cal.next_day(cal.next_day(start))
+    expect_vars = {"time", "lon", "lat", "lev", "u", "v", "t", "q", "phi",
+                   "ps"}
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "out")
+        t0 = time.perf_counter()
+        model.run(start, day1, output_writer=NetCDFWriter(model.cfg, out),
+                  verbose=False)
+        t_out = time.perf_counter() - t0
+        files = sorted(os.listdir(out))
+        with netcdf_file(os.path.join(out, files[-1]), mmap=False) as f:
+            names = set(f.variables)
+            t_last = f.variables["t"][:].copy()
+        files_ok = (len(files) == model.cfg.nsteps + 1
+                    and files[0] == "198201010000.nc"
+                    and files[-1] == "198201020000.nc"
+                    and names == expect_vars
+                    and bool(np.isfinite(t_last).all()))
+        print(f"[8] Model.run 1 day with output: {len(files)} files "
+              f"({files[0]} .. {files[-1]}), variables {sorted(names)}, "
+              f"{t_out:.2f} s {'ok' if files_ok else 'FAILED'}")
+
+        ck = os.path.join(tmp, "ck")
+        straight = model.run(start, day2, verbose=False, checkpoint_every=1,
+                             checkpoint_dir=ck)
+        restored, date, step, _ = load_checkpoint(
+            os.path.join(ck, "ckpt_198201020000.npz"),
+            model.initialize(start), cfg=model.cfg)
+        resumed = model.run(start, day2, state=restored, resume_date=date,
+                            model_step=step, verbose=False)
+    same = all(torch.equal(a, b) for a, b in zip(straight.prog,
+                                                 resumed.prog))
+    same &= torch.equal(straight.sppt.spec, resumed.sppt.spec)
+    print(f"[8] checkpoint at {date} (step {step}) resumed to {day2}: "
+          f"equal to the straight run: {same}")
+    return files_ok and same
 
 
 def main() -> int:
@@ -182,16 +355,21 @@ def main() -> int:
     from speedy_tpu_torch.config import t30
     from speedy_tpu_torch.models.model import Model
     from speedy_tpu_torch.models.physics import fused
+    from speedy_tpu_torch.ops import fused_transforms as ft
     from speedy_tpu_torch.utils import calendar as cal, native
     from speedy_tpu_torch.utils.synthetic_bc import synthetic_boundaries
 
-    # [2] build
+    # [2] build, one nvcc per source, all at once
+    libs = {"column_physics": fused.SOURCES,
+            "spectral_transforms": ft.SOURCES}
     t0 = time.perf_counter()
-    native.load("column_physics", fused.SOURCES)
-    print(f"[2] built column_physics in {time.perf_counter() - t0:.1f} s "
-          f"(nvcc {native.build_seconds.get('column_physics', 0.0):.1f} s)")
-    for line in ptxas_summary(native.build_log.get("column_physics", "")):
-        print("    ptxas:", line)
+    native.build_all(libs)
+    print(f"[2] built {', '.join(libs)} in {time.perf_counter() - t0:.1f} s "
+          "(nvcc " + ", ".join(f"{n} {native.build_seconds.get(n, 0.0):.1f} s"
+                               for n in libs) + ")")
+    for name in libs:
+        for line in ptxas_summary(native.build_log.get(name, "")):
+            print("    ptxas:", line)
 
     bc = synthetic_boundaries(0)
     models = {p: Model(t30(precision=p), device="cuda", bc_arrays=bc)
@@ -288,6 +466,22 @@ def main() -> int:
         print("[5] FAILED")
         return 1
 
+    # [6] the transform benchmark's path, then the kernels against the
+    # einsum chain at every shape it ran and more
+    b_ok, bench, n_syn, n_ana = bench_path(reps=N_TIMED)
+    t_ok, t_rows = transform_phase(bench)
+    if not (t_ok and b_ok):
+        print("[6] FAILED")
+        return 1
+
+    # [7] SPPT, [8] the run path
+    if not sppt_phase(bc, start, card):
+        print("[7] FAILED")
+        return 1
+    if not run_phase(bc, start):
+        print("[8] FAILED")
+        return 1
+
     kernels = []
     for variant, launches in (("sw", n_launch_sw),
                               ("nosw", n_launch - n_launch_sw)):
@@ -299,6 +493,17 @@ def main() -> int:
             launches=launches, max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=None))
+    for name, b, launches, line in (
+            ("spectral_synthesis", 57, n_syn, 139),
+            ("spectral_analysis", 48, n_ana, 155)):
+        r = t_rows[(name, "t30", "fp32", b)]
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="speedy_tpu_torch/csrc/spectral_transforms.cu",
+            replaces=f"speedy_tpu/ops/pallas_transforms.py:{line}",
+            launches=launches, max_abs_err=r["max_abs_err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"]))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -108,8 +108,7 @@ class ModelConfig:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Refuse the options this package does not implement yet."""
-    for on, what in ((cfg.sppt_on, "sppt_on=True"),
-                     (cfg.sst_anomaly_forcing, "sst_anomaly_forcing=True"),
+    for on, what in ((cfg.sst_anomaly_forcing, "sst_anomaly_forcing=True"),
                      (not cfg.lw_band_vectorized, "lw_band_vectorized=False"),
                      (cfg.n_ensemble > 1, "n_ensemble>1"),
                      (cfg.sea_coupling_flag >= 1, "sea_coupling_flag>=1")):

@@ -3,10 +3,13 @@
 The model has no learned weights; what carries over between runs and
 between implementations is its state: the spectral prognostics
 ``prog.{vor,div,t,ps,tr}``, the nine surface fields ``surf.*`` and the six
-radiation fields ``rad.*``. ``model_state_from_numpy`` takes that tree
-(objects with those attributes, such as the JAX package's ModelState
-mapped to numpy arrays, or the nested dicts ``model_state_to_numpy``
-returns) and builds this package's ModelState on a device.
+radiation fields ``rad.*``, and with SPPT on the spectral AR(1) state
+``sppt.spec``. ``model_state_from_numpy`` takes that tree (objects with
+those attributes, such as the JAX package's ModelState mapped to numpy
+arrays, or the nested dicts ``model_state_to_numpy`` returns) and builds
+this package's ModelState on a device. The random-number state does not
+carry over between the two packages (a JAX key is not a torch generator):
+the SPPT state gets a new generator seeded with 0.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import torch
 from .models.model import ModelState
 from .models.physics import SurfaceState
 from .models.physics.shortwave import RadiationState
+from .models.physics.sppt import SpptState
 from .models.state import PrognosticState
 
 _GROUPS = (("prog", PrognosticState), ("surf", SurfaceState),
@@ -25,25 +29,33 @@ _GROUPS = (("prog", PrognosticState), ("surf", SurfaceState),
 
 
 def _get(tree: Any, name: str) -> Any:
-    return tree[name] if isinstance(tree, dict) else getattr(tree, name)
+    return tree.get(name) if isinstance(tree, dict) \
+        else getattr(tree, name, None)
 
 
 def model_state_from_numpy(tree: Any, device, dtype: torch.dtype
                            ) -> ModelState:
     """numpy state tree -> ModelState of ``dtype`` tensors on ``device``."""
+    tensor = lambda a: torch.as_tensor(np.array(a), dtype=dtype,
+                                       device=device)
     groups = {}
     for group, cls in _GROUPS:
         sub = _get(tree, group)
-        groups[group] = cls(**{
-            f: torch.as_tensor(np.array(_get(sub, f)), dtype=dtype,
-                               device=device)
-            for f in cls._fields})
+        groups[group] = cls(**{f: tensor(_get(sub, f)) for f in cls._fields})
+    sppt = _get(tree, "sppt")
+    if sppt is not None:
+        groups["sppt"] = SpptState(
+            spec=tensor(_get(sppt, "spec")),
+            generator=torch.Generator(device=device).manual_seed(0))
     return ModelState(**groups)
 
 
 def model_state_to_numpy(state: ModelState) -> Dict[str, Dict[str, np.ndarray]]:
     """ModelState -> {"prog": {...}, "surf": {...}, "rad": {...}} of numpy
-    arrays."""
-    return {group: {f: getattr(state, group)._asdict()[f].cpu().numpy()
+    arrays, with "sppt": {"spec": ...} where the state has SPPT."""
+    tree = {group: {f: getattr(state, group)._asdict()[f].cpu().numpy()
                     for f in cls._fields}
             for group, cls in _GROUPS}
+    if state.sppt is not None:
+        tree["sppt"] = {"spec": state.sppt.spec.cpu().numpy()}
+    return tree

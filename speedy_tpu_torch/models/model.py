@@ -3,30 +3,37 @@ speedy.f90).
 
 The state advances one step at a time in Python loops on the device
 (``run_day``: the day's steps as triples with the shortwave on the first
-step of each, ``run_fast``: whole days with the stability guard checked
-once per day). The host computes the date-derived scalars once a day.
+step of each; ``run_fast``: whole days with the stability guard checked
+once per day; ``run``: whole days with the guard and the diagnostics per
+step, gridded output and checkpoints). The host computes the
+date-derived scalars once a day.
 """
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional, Tuple
+import os
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..config import ModelConfig, check_supported
+from ..constants import GRAV, P0
 from ..geometry import build_geometry, build_geometry_np
 from ..ops import spectral as sp
 from ..utils import calendar as cal
+from ..utils.checkpoint import save_checkpoint
 from ..utils.diagnostics import (Diagnostics, compute_diagnostics,
-                                 check_diagnostics)
+                                 check_diagnostics, format_diagnostics)
 from . import boundaries as bnd
 from . import coupling
-from .geopotential import build_geopotential
+from .geopotential import build_geopotential, get_geopotential
 from .hdiffusion import build_diffusion, build_diffusion_np, DiffusionConsts
 from .implicit import build_implicit, ImplicitConsts
 from .physics import (DailyForcing, PhysicsParams, SurfaceState,
                       build_physics_params, get_physical_tendencies)
 from .physics.shortwave import init_radiation_state, RadiationState
+from .physics.sppt import (Noise, SpptState, gen_sppt, init_sppt_state,
+                           sppt_ar1)
 from .prognostics import rest_state
 from .state import PrognosticState
 from .tendencies import DynConsts
@@ -44,10 +51,12 @@ class ModelConsts(NamedTuple):
 
 
 class ModelState(NamedTuple):
-    """Full model state advanced by the step loop."""
+    """Full model state advanced by the step loop; ``sppt`` is None unless
+    the configuration has ``sppt_on``."""
     prog: PrognosticState
     surf: SurfaceState
     rad: RadiationState
+    sppt: Optional[SpptState] = None
 
 
 def resolve_device(device=None) -> torch.device:
@@ -61,68 +70,120 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
-def _physics_fn(cfg, pp, daily, state, compute_sw):
+def _physics_fn(cfg, pp, daily, state, compute_sw, sppt_pattern=None):
     def physics_fn(pg):
         return get_physical_tendencies(cfg, pp, daily, state.surf,
-                                       state.rad, compute_sw, pg)
+                                       state.rad, compute_sw, pg,
+                                       sppt_pattern)
     return physics_fn
 
 
 def one_step(cfg: ModelConfig, pp: PhysicsParams,
              lsp: coupling.LandSeaParams, mc: ModelConsts, state: ModelState,
              daily: DailyForcing, compute_sw: bool, couple_next: bool = False,
-             with_diag: bool = True
+             with_diag: bool = True, noise: Noise = None
              ) -> Tuple[ModelState, Optional[Diagnostics]]:
     """One leapfrog step with physics, then the slab coupling. On the
     day's last step ``couple_next`` couples with the next day's
-    climatology (speedy.f90:47-53)."""
+    climatology (speedy.f90:47-53). With ``sppt_on`` the SPPT state takes
+    its AR(1) update first and its pattern rides the step's synthesis;
+    ``noise`` supplies the innovations (physics/sppt.py)."""
     corr = OrographicCorrection(tcorh=daily.tcorh, qcorh=daily.qcorh)
+    sppt_spec, sppt_state = None, state.sppt
+    if cfg.sppt_on:
+        sppt_spec, sppt_state = sppt_ar1(cfg, pp.sppt_sigma, state.sppt,
+                                         noise)
     phys = _physics_fn(cfg, pp, daily, state, compute_sw)
     prog, aux = step(cfg, mc.dyn, mc.dc, mc.ic_2dt, state.prog,
-                     2, 2, 2 * cfg.delt, corr, phys)
+                     2, 2, 2 * cfg.delt, corr, phys, sppt_spec)
     surf = coupling.couple_step(
         cfg, lsp, coupling.select_couple_daily(daily, couple_next),
         state.surf, aux.fluxes)
     diag = compute_diagnostics(mc.dyn.sc, prog.vor[1], prog.div[1],
                                prog.t[1]) if with_diag else None
-    return ModelState(prog=prog, surf=surf, rad=aux.rad), diag
+    return ModelState(prog=prog, surf=surf, rad=aux.rad,
+                      sppt=sppt_state), diag
+
+
+def gridded_fields(cfg: ModelConfig, mc: ModelConsts, prog: PrognosticState,
+                   level: int = 0) -> Dict[str, torch.Tensor]:
+    """Physical-space output fields u, v, t, q, phi [kx, il, ix] and ps
+    [il, ix] at time level ``level`` (input_output.f90:183-206)."""
+    kx, sc = cfg.kx, mc.dyn.sc
+    ucos, vcos = sp.uvspec(sc, prog.vor[level], prog.div[level])
+    wind = sp.spec_to_grid(sc, torch.cat([ucos, vcos], dim=0),
+                           scale_by_inv_cos=True)
+    phi = get_geopotential(mc.dyn.gc, prog.t[level], mc.dyn.phis)
+    scal = torch.cat([prog.t[level], prog.tr[level, 0], phi,
+                      prog.ps[level][None]], dim=0)
+    g = sp.spec_to_grid(sc, scal)
+    return dict(u=wind[:kx], v=wind[kx:], t=g[:kx],
+                q=g[kx:2 * kx] * 1.0e-3, phi=g[2 * kx:3 * kx] / GRAV,
+                ps=P0 * torch.exp(g[3 * kx]))
 
 
 def run_day(cfg: ModelConfig, pp: PhysicsParams, lsp: coupling.LandSeaParams,
             mc: ModelConsts, state: ModelState, ds: coupling.DateScalars,
-            diag_every: int = 1) -> Tuple[ModelState, List[Diagnostics]]:
+            diag_every: int = 1, noise: Noise = None,
+            collect_output: bool = False
+            ) -> Tuple[ModelState, List[Diagnostics],
+                       Optional[List[Dict[str, torch.Tensor]]]]:
     """One simulated day: nsteps steps as triples of nstrad steps with the
     shortwave on the first of each (model.py run_day of the JAX package,
     speedy.f90:35). Diagnostics every ``diag_every`` steps (must divide
-    nstrad)."""
+    nstrad); with ``collect_output`` the gridded fields after every step
+    (on the device), else None."""
     if cfg.nstrad % diag_every:
         raise ValueError(f"diag_every={diag_every} must divide "
                          f"nstrad={cfg.nstrad}")
     daily = coupling.daily_update(cfg, pp, lsp, mc.dyn.sc, mc.clim, ds,
                                   state.surf)
     diags = []
+    grids = [] if collect_output else None
     for istep in range(cfg.nsteps):
         i = istep % cfg.nstrad
         state, diag = one_step(cfg, pp, lsp, mc, state, daily,
                                compute_sw=(i == 0),
                                couple_next=(istep == cfg.nsteps - 1),
-                               with_diag=((i + 1) % diag_every == 0))
+                               with_diag=((i + 1) % diag_every == 0),
+                               noise=noise)
         if diag is not None:
             diags.append(diag)
-    return state, diags
+        if collect_output:
+            grids.append(gridded_fields(cfg, mc, state.prog))
+    return state, diags, grids
 
 
 def boot(cfg: ModelConfig, pp: PhysicsParams, lsp: coupling.LandSeaParams,
          mc: ModelConsts, state: ModelState,
-         ds: coupling.DateScalars) -> ModelState:
-    """Leapfrog bootstrap with physics (time_stepping.f90:12-24)."""
+         ds: coupling.DateScalars, noise: Noise = None) -> ModelState:
+    """Leapfrog bootstrap with physics (time_stepping.f90:12-24). With
+    ``sppt_on``, both sub-steps use the pattern of one AR(1) update of the
+    initial SPPT state, made with a transform of its own, and the updated
+    state is kept: the JAX package's physics closure draws from the initial
+    state in each sub-step (model.py:155-163 there), so both draw the same
+    pattern."""
     daily = coupling.daily_update(cfg, pp, lsp, mc.dyn.sc, mc.clim, ds,
                                   state.surf)
     corr = OrographicCorrection(tcorh=daily.tcorh, qcorh=daily.qcorh)
-    phys = _physics_fn(cfg, pp, daily, state, compute_sw=True)
+    pattern, sppt_state = None, state.sppt
+    if cfg.sppt_on:
+        pattern, sppt_state = gen_sppt(cfg, mc.dyn.sc, pp.sppt_sigma,
+                                       state.sppt, noise)
+    phys = _physics_fn(cfg, pp, daily, state, True, pattern)
     prog, aux = first_step(cfg, mc.dyn, mc.dc, mc.ic_half, mc.ic_full,
                            state.prog, corr, phys)
-    return state._replace(prog=prog, rad=aux.rad)
+    return state._replace(prog=prog, rad=aux.rad, sppt=sppt_state)
+
+
+def _to_host(tensors: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """Bring a dict of same-dtype tensors to the host in one copy."""
+    flat = torch.cat([t.reshape(-1) for t in tensors.values()]).cpu().numpy()
+    out, off = {}, 0
+    for k, t in tensors.items():
+        out[k] = flat[off:off + t.numel()].reshape(t.shape)
+        off += t.numel()
+    return out
 
 
 class Model:
@@ -135,8 +196,11 @@ class Model:
     """
 
     def __init__(self, cfg: ModelConfig, device=None, bc_search=None,
-                 bc_arrays=None):
+                 bc_arrays=None, sppt_seed: int = 0,
+                 sppt_noise: Noise = None):
         check_supported(cfg)
+        self.sppt_seed = sppt_seed
+        self.sppt_noise = sppt_noise
         self.device = resolve_device(device)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -157,8 +221,8 @@ class Model:
             cfg, host(self.bounds.fmask), host(self.bounds.alb0),
             self.geom_np["radang"], dev, search=bc_search, arrays=bc_arrays)
         self.pp = build_physics_params(
-            cfg, self.geom_np, host(self.lsp.fmask_l), host(self.lsp.fmask_s),
-            host(self.bounds.phis0), dev)
+            cfg, self.geom_np, self.sp_np, host(self.lsp.fmask_l),
+            host(self.lsp.fmask_s), host(self.bounds.phis0), dev)
         implicit = lambda dt: build_implicit(cfg, self.geom_np, self.diff_np,
                                              dt, dev)
         self.mc = ModelConsts(
@@ -181,24 +245,33 @@ class Model:
             year=date.year, imont1_next=im_n, tmonth_next=tm_n)
 
     def initial_state(self, start: cal.Datetime) -> ModelState:
-        """Rest state, day-0 surface and radiation, before the bootstrap."""
+        """Rest state, day-0 surface and radiation, and the stationary SPPT
+        state where SPPT is on, before the bootstrap."""
         cfg = self.cfg
         ds = self.date_scalars(start, start)
         prog = rest_state(cfg, self.geom_np, self.sp_np, self.bounds)
         surf = coupling.init_surface_state(cfg, self.pp, self.lsp,
                                            self.mc.dyn.sc, self.mc.clim, ds)
+        sppt = init_sppt_state(cfg, self.pp.sppt_sigma, self.sppt_seed,
+                               self.sppt_noise) if cfg.sppt_on else None
         return ModelState(prog=prog, surf=surf,
-                          rad=init_radiation_state(cfg, self.device))
+                          rad=init_radiation_state(cfg, self.device),
+                          sppt=sppt)
 
     def initialize(self, start: cal.Datetime) -> ModelState:
         """Initial state after the leapfrog bootstrap."""
         return boot(self.cfg, self.pp, self.lsp, self.mc,
-                    self.initial_state(start), self.date_scalars(start, start))
+                    self.initial_state(start), self.date_scalars(start, start),
+                    self.sppt_noise)
 
     def one_step(self, state: ModelState, daily: DailyForcing,
                  compute_sw: bool, couple_next: bool = False):
         return one_step(self.cfg, self.pp, self.lsp, self.mc, state, daily,
-                        compute_sw, couple_next)
+                        compute_sw, couple_next, noise=self.sppt_noise)
+
+    def gridded_fields(self, prog: PrognosticState, level: int = 0
+                       ) -> Dict[str, torch.Tensor]:
+        return gridded_fields(self.cfg, self.mc, prog, level)
 
     def daily_forcing(self, state: ModelState, date: cal.Datetime,
                       start: cal.Datetime) -> DailyForcing:
@@ -220,8 +293,11 @@ class Model:
 
     def run_day(self, state: ModelState, date: cal.Datetime,
                 start: cal.Datetime, diag_every: int = 1):
-        return run_day(self.cfg, self.pp, self.lsp, self.mc, state,
-                       self.date_scalars(date, start), diag_every)
+        """One day from ``date``: (state, diagnostics)."""
+        state, diags, _ = run_day(self.cfg, self.pp, self.lsp, self.mc,
+                                  state, self.date_scalars(date, start),
+                                  diag_every, self.sppt_noise)
+        return state, diags
 
     # ------------------------------------------------------------------
     def run_fast(self, start: cal.Datetime, n_days: int,
@@ -235,8 +311,9 @@ class Model:
             state = self.initialize(start)
         ds_days, _ = self.make_ds_days(start, start, n_days)
         for day, ds in enumerate(ds_days):
-            state, diags = run_day(cfg, self.pp, self.lsp, self.mc, state,
-                                   ds, cfg.diag_every)
+            state, diags, _ = run_day(cfg, self.pp, self.lsp, self.mc,
+                                      state, ds, cfg.diag_every,
+                                      self.sppt_noise)
             if check:
                 reke = torch.stack([d.reke for d in diags]).amax(dim=0)
                 deke = torch.stack([d.deke for d in diags]).amax(dim=0)
@@ -247,4 +324,69 @@ class Model:
                     reke=guard[0], deke=guard[1],
                     tmean=np.where(guard[2] < 180.0, guard[2], guard[3])),
                     day)
+        return state
+
+    def run(self, start: cal.Datetime, end: cal.Datetime,
+            output_writer=None, verbose: bool = True,
+            state: Optional[ModelState] = None,
+            resume_date: Optional[cal.Datetime] = None,
+            model_step: int = 0,
+            checkpoint_every: int = 0,
+            checkpoint_dir: Optional[str] = None) -> ModelState:
+        """Main loop (speedy.f90:27-54), a day at a time, with the
+        stability guard on every step's diagnostics, the diagnostics printed
+        every ``nstdia`` steps (``verbose``), and
+        ``output_writer(step, date, start, fields)`` called with the gridded
+        fields (numpy) every ``nsteps_out`` steps and at step 0. The day's
+        diagnostics and fields come to the host in one copy per day.
+
+        ``state``/``resume_date``/``model_step`` resume from a checkpoint
+        (utils/checkpoint.py); ``checkpoint_every`` > 0 writes a checkpoint
+        every that many days into ``checkpoint_dir``.
+        """
+        cfg = self.cfg
+        if state is None:
+            state = self.initialize(start)
+            date = start
+        else:
+            date = resume_date if resume_date is not None else start
+        if not date < end:
+            raise ValueError(
+                f"run start/resume date {date} is not before end {end}")
+        if output_writer is not None and model_step == 0:
+            output_writer(0, date, start,
+                          _to_host(self.gridded_fields(state.prog)))
+        if checkpoint_every and checkpoint_dir:
+            os.makedirs(checkpoint_dir, exist_ok=True)
+        collect = output_writer is not None
+        day_count = 0
+        while date < end:
+            state, diags, grids = run_day(
+                cfg, self.pp, self.lsp, self.mc, state,
+                self.date_scalars(date, start), 1, self.sppt_noise, collect)
+            day = {f: torch.stack([getattr(d, f) for d in diags])
+                   for f in Diagnostics._fields}
+            if collect:
+                day.update({k: torch.stack([g[k] for g in grids])
+                            for k in grids[0]})
+            day = _to_host(day)
+            for i in range(cfg.nsteps):
+                model_step += 1
+                date = cal.newdate(date, cfg.nsteps)
+                diag_i = Diagnostics(*[day[f][i] for f in Diagnostics._fields])
+                if model_step % cfg.nstdia == 0 and verbose:
+                    print(format_diagnostics(diag_i, model_step))
+                check_diagnostics(diag_i, model_step)
+                if collect and model_step % cfg.nsteps_out == 0:
+                    output_writer(model_step, date, start,
+                                  {k: day[k][i] for k in grids[0]})
+                if not date < end:
+                    break
+            day_count += 1
+            if checkpoint_every and checkpoint_dir and \
+                    day_count % checkpoint_every == 0:
+                name = (f"ckpt_{date.year:04d}{date.month:02d}"
+                        f"{date.day:02d}{date.hour:02d}{date.minute:02d}.npz")
+                save_checkpoint(os.path.join(checkpoint_dir, name), state,
+                                date, model_step, start=start, cfg=cfg)
         return state

@@ -1,7 +1,8 @@
 """Physics suite (source/physics.f90): convection -> large-scale
 condensation -> shortwave radiation (every nstrad steps) -> longwave down
 -> surface fluxes -> longwave up -> vertical diffusion with the surface
-fluxes injected at the lowest level.
+fluxes injected at the lowest level -> SPPT (multiplicative noise on the
+tendencies, with ``sppt_on``).
 
 ``grid_physics_core`` is the plain PyTorch version of the column chain and
 the reference of the CUDA kernel in ``fused.py``, whose wrapper
@@ -20,6 +21,7 @@ import torch
 from ...config import ModelConfig
 from ...constants import CP, GRAV, P0
 from . import condensation, convection, longwave, shortwave
+from . import sppt as sppt_mod
 from . import surface as surface_mod
 from . import vertical_diffusion as vdif_mod
 from .humidity import spec_hum_to_rel_hum
@@ -43,10 +45,12 @@ class PhysicsParams:
     fmask_l: torch.Tensor  # [il, ix]
     fmask_s: torch.Tensor  # [il, ix]
     phis0: torch.Tensor   # [il, ix] filtered surface geopotential
+    sppt_sigma: torch.Tensor  # [mx, nx] SPPT noise amplitude
+    sppt_mu: torch.Tensor  # [kx] SPPT vertical taper (sppt.f90:20)
     kernel_block: Optional[np.ndarray] = None  # fused.argument_block
 
 
-def build_physics_params(cfg: ModelConfig, geom_np: dict,
+def build_physics_params(cfg: ModelConfig, geom_np: dict, sp_np: dict,
                          fmask_l: np.ndarray, fmask_s: np.ndarray,
                          phis0: np.ndarray, device) -> PhysicsParams:
     hsg, dhs, fsg = geom_np["hsg"], geom_np["dhs"], geom_np["fsg"]
@@ -71,7 +75,9 @@ def build_physics_params(cfg: ModelConfig, geom_np: dict,
         # here (forcing.f90:43)
         forog=dev(surface_mod.orographic_drag_factor(phis0)),
         coa=dev(geom_np["coa"]), fmask_l=dev(fmask_l), fmask_s=dev(fmask_s),
-        phis0=dev(phis0))
+        phis0=dev(phis0),
+        sppt_sigma=dev(sppt_mod.sppt_sigma(cfg, sp_np["el2"])),
+        sppt_mu=dev(np.ones(kx)))
     from .fused import argument_block
     return dataclasses.replace(pp, kernel_block=argument_block(pp))
 
@@ -232,20 +238,32 @@ def grid_physics_core(cfg: ModelConfig, pp: PhysicsParams,
 
 def get_physical_tendencies(cfg: ModelConfig, pp: PhysicsParams,
                             daily: DailyForcing, surf: SurfaceState,
-                            rad: RadiationState, compute_sw: bool, pg
+                            rad: RadiationState, compute_sw: bool, pg,
+                            sppt_pattern: Optional[torch.Tensor] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor, torch.Tensor,
                                        PhysicsAux]:
     """Physics tendencies at time level 0 (physics.f90:43-223) from the
     level-0 grid fields ``pg``. Returns the grid-point tendency increments
     (utend, vtend, ttend, qtend) and PhysicsAux; ``compute_sw`` is the
-    shortwave cadence (speedy.f90:35)."""
+    shortwave cadence (speedy.f90:35). With ``sppt_on`` the increments are
+    multiplied by 1 + the SPPT pattern: ``sppt_pattern`` (clipped, from
+    sppt.gen_sppt) where given, else ``pg.sppt`` clipped to [-1, 1]."""
     from .fused import fused_grid_physics
     outs = fused_grid_physics(cfg, pp, compute_sw, daily, surf, rad, pg)
     (utend, vtend, ttend, qtend, precnv, precls, cbmf, slrd, slr, olr,
      sfc) = outs[:11]
     if compute_sw:
         rad = RadiationState(*outs[11:])
+
+    # SPPT multiplicative noise on the physics increments
+    # (physics.f90:207-222); the column kernel's outputs are unchanged
+    if cfg.sppt_on:
+        pattern = sppt_pattern if sppt_pattern is not None \
+            else torch.clamp(pg.sppt, -1.0, 1.0)
+        fac = 1.0 + pattern * pp.sppt_mu[:, None, None]
+        utend, vtend = fac * utend, fac * vtend
+        ttend, qtend = fac * ttend, fac * qtend
     fluxes = Fluxes(precnv=precnv, precls=precls, cbmf=cbmf, tsr=rad.tsr,
                     ssrd=rad.ssrd, ssr=rad.ssr, slrd=slrd, slr=slr, olr=olr,
                     sfc=sfc)

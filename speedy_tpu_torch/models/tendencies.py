@@ -48,6 +48,7 @@ class PhysicsGridState(NamedTuple):
     qg: torch.Tensor    # unclamped; physics clamps >= 0
     phig: torch.Tensor
     pslg: torch.Tensor  # [il, ix] log surface pressure
+    sppt: Optional[torch.Tensor] = None  # [kx, il, ix] unclipped SPPT pattern
 
 
 PhysicsFn = Callable[[PhysicsGridState], Tuple]
@@ -64,13 +65,15 @@ def _half_level_advection(shd: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
 def grid_dynamics_tendencies(cfg: ModelConfig, dyn: DynConsts,
                              ic: ImplicitConsts, state: PrognosticState,
                              j2: int,
-                             phi0_spec: Optional[torch.Tensor] = None
+                             phi0_spec: Optional[torch.Tensor] = None,
+                             sppt_spec: Optional[torch.Tensor] = None
                              ) -> Tuple:
     """Nonlinear grid-point dynamics tendencies (tendencies.f90:49-197).
 
     Returns (gs, pg, psdt_g, utend, vtend, ttend, trtend, tgg); ``pg`` is
     the level-0 PhysicsGridState, or None when ``phi0_spec`` is None (the
-    adiabatic core).
+    adiabatic core). ``sppt_spec`` [kx, mx, nx, 2], the updated SPPT state,
+    rides the merged synthesis and comes out as ``pg.sppt``.
     """
     sc, geom = dyn.sc, dyn.geom
     dhs = geom.dhs[:, None, None]
@@ -85,6 +88,8 @@ def grid_dynamics_tendencies(cfg: ModelConfig, dyn: DynConsts,
               state.tr[j2].reshape((-1,) + vor_s.shape[1:])]
     if with_phys:
         fields += [state.t[0], state.tr[0, 0], phi0_spec, state.ps[0][None]]
+    if sppt_spec is not None:
+        fields.append(sppt_spec)
     plain_g = sp.spec_to_grid(sc, torch.cat(fields, dim=0))
     vorg = plain_g[0:kx]
     divg = plain_g[kx:2 * kx]
@@ -112,7 +117,9 @@ def grid_dynamics_tendencies(cfg: ModelConfig, dyn: DynConsts,
             tg=plain_g[base:base + kx],
             qg=plain_g[base + kx:base + 2 * kx],
             phig=plain_g[base + 2 * kx:base + 3 * kx],
-            pslg=plain_g[base + 3 * kx])
+            pslg=plain_g[base + 3 * kx],
+            sppt=(plain_g[base + 3 * kx + 1:base + 4 * kx + 1]
+                  if sppt_spec is not None else None))
 
     vorg = vorg + geom.coriol[None, :, None]
 
@@ -223,14 +230,15 @@ def spectral_tendencies(cfg: ModelConfig, dyn: DynConsts, ic: ImplicitConsts,
 
 def get_tendencies(cfg: ModelConfig, dyn: DynConsts, ic: ImplicitConsts,
                    state: PrognosticState, j2: int,
-                   physics_fn: Optional[PhysicsFn] = None) -> Tuple:
+                   physics_fn: Optional[PhysicsFn] = None,
+                   sppt_spec: Optional[torch.Tensor] = None) -> Tuple:
     """Full tendencies (tendencies.f90:11-37): grid-point dynamics (+
     physics at level 0) -> spectral -> spectral tendencies -> semi-implicit
     correction. Returns (vordt, divdt, tdt, psdt, trdt, physics_aux)."""
     phi0 = get_geopotential(dyn.gc, state.t[0], dyn.phis) \
         if physics_fn is not None else None
     gs, pg, psdt_g, utend, vtend, ttend, trtend, tgg = \
-        grid_dynamics_tendencies(cfg, dyn, ic, state, j2, phi0)
+        grid_dynamics_tendencies(cfg, dyn, ic, state, j2, phi0, sppt_spec)
 
     aux = None
     if physics_fn is not None:

@@ -39,12 +39,14 @@ def step(cfg: ModelConfig, dyn: DynConsts, dc: DiffusionConsts,
          ic: ImplicitConsts, state: PrognosticState,
          j1: int, j2: int, dt: float,
          corr: OrographicCorrection,
-         physics_fn=None) -> Tuple[PrognosticState, object]:
+         physics_fn=None, sppt_spec=None) -> Tuple[PrognosticState, object]:
     """One time step (time_stepping.f90:35-122). j1=1, j2=1: forward step;
-    j1=1, j2=2: first leapfrog; j1=2, j2=2: filtered leapfrog."""
+    j1=1, j2=2: first leapfrog; j1=2, j2=2: filtered leapfrog.
+    ``sppt_spec``: the updated SPPT spectral state, synthesized in the
+    step's merged batch for the physics."""
     sc = dyn.sc
     vordt, divdt, tdt, psdt, trdt, aux = get_tendencies(
-        cfg, dyn, ic, state, j2 - 1, physics_fn)
+        cfg, dyn, ic, state, j2 - 1, physics_fn, sppt_spec)
 
     # horizontal diffusion (time_stepping.f90:62-102)
     vordt = apply_diffusion(state.vor[0], vordt, dc.dmp, ic.dmp1)

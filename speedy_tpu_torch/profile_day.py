@@ -1,13 +1,14 @@
 """Where one simulated day's time goes on the card.
 
-    python -m speedy_tpu_torch.profile_day [--precision fp32]
+    python -m speedy_tpu_torch.profile_day [--precision fp32] [--sppt]
 
 Builds the T30 model on CUDA from the stand-in boundary set, runs one warm
 day, then times one more day on the host clock (ending in a
 synchronise) and traces them with torch.profiler. Prints the wall time per
 step, the device time summed over CUDA kernels, the device's busy share,
 the number of kernel launches per step, and the kernels that take the most
-device time, with the column-physics kernel's share. Needs a CUDA device.
+device time, with the column-physics kernel's share. ``--sppt`` runs the
+model with SPPT on. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import torch
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--precision", default="fp32", choices=("fp32", "fp64"))
+    ap.add_argument("--sppt", action="store_true", help="SPPT on")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_day: CUDA is not available", file=sys.stderr)
@@ -32,7 +34,8 @@ def main(argv=None) -> int:
     from .utils import calendar as cal
     from .utils.synthetic_bc import synthetic_boundaries
 
-    model = Model(t30(precision=args.precision), device="cuda",
+    model = Model(t30(precision=args.precision, sppt_on=args.sppt),
+                  device="cuda",
                   bc_arrays=synthetic_boundaries(0))
     start = cal.Datetime(1982, 1, 1)
     state = model.run_fast(start, 1)          # warm-up day
@@ -63,7 +66,8 @@ def main(argv=None) -> int:
     k1 = sum(t for name, (n, t) in by_name.items()
              if "column_physics" in name)
     card = torch.cuda.get_device_name(0)
-    print(f"{card}: {args.precision} T30, 1 day, "
+    print(f"{card}: {args.precision} T30{' SPPT' if args.sppt else ''}, "
+          f"1 day, "
           f"{wall / nsteps * 1e3:.3f} ms/step wall "
           f"({60.0 / wall:.1f} sim-days/min); profiled "
           f"{wall_prof / nsteps * 1e3:.3f} ms/step")
@@ -83,7 +87,7 @@ def main(argv=None) -> int:
                       "busy_share": busy,
                       "launches_per_step": len(kernels) / nsteps,
                       "column_physics_us_per_step": k1 / nsteps,
-                      "device": card}))
+                      "sppt": args.sppt, "device": card}))
     return 0
 
 

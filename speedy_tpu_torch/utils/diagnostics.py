@@ -45,3 +45,11 @@ def check_diagnostics(diag: Diagnostics, istep: int) -> None:
         raise InstabilityError(
             f"Model variables out of accepted range at step {istep}: "
             f"reke={reke}, deke={deke}, temp={tmean}")
+
+
+def format_diagnostics(diag: Diagnostics, istep: int) -> str:
+    """The diagnostics printout, every ``nstdia`` steps of a run."""
+    fmt = lambda a: "".join(f"{x:8.2f}" for x in np.asarray(a))
+    return (f" step ={istep:6d} reke ={fmt(diag.reke)}\n"
+            f"{'':13s} deke ={fmt(diag.deke)}\n"
+            f"{'':13s} temp ={fmt(diag.tmean)}")

@@ -42,24 +42,52 @@ def _library_path(name: str, sources) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
-def build(name: str, sources) -> str:
-    """Compile ``sources`` (file names under csrc/) into a shared library
-    unless it exists already; returns its path."""
+def _start(name: str, sources):
+    """Start nvcc for ``sources`` unless the library exists; returns (path,
+    process or None, temporary path, start time)."""
     path = _library_path(name, sources)
     if os.path.exists(path):
-        return path
+        return path, None, None, 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
            *[os.path.join(CSRC, s) for s in sources]]
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return path, proc, tmp, time.perf_counter()
+
+
+def _finish(name: str, started) -> str:
+    path, proc, tmp, t0 = started
+    if proc is None:
+        return path
+    out, err = proc.communicate()
     build_seconds[name] = time.perf_counter() - t0
-    build_log[name] = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}:\n{res.stderr}")
+    build_log[name] = out + err
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}:\n{err}")
     os.replace(tmp, path)
     return path
+
+
+def build(name: str, sources) -> str:
+    """Compile ``sources`` (file names under csrc/) into a shared library
+    unless it exists already; returns its path."""
+    return _finish(name, _start(name, sources))
+
+
+def build_all(libraries: dict) -> None:
+    """Build every library of ``{name: sources}``, one nvcc process for
+    each, all started together."""
+    started = {name: _start(name, srcs) for name, srcs in libraries.items()}
+    errors = []
+    for name, st in started.items():
+        try:
+            _finish(name, st)
+        except RuntimeError as e:
+            errors.append(str(e))
+    if errors:
+        raise RuntimeError("\n".join(errors))
 
 
 def load(name: str, sources) -> ctypes.CDLL:

@@ -164,7 +164,7 @@ def test_model_defaults_to_cuda_and_never_falls_back(bc):
         Model(t30(), bc_arrays=bc)
 
 
-@pytest.mark.parametrize("option", [dict(sppt_on=True),
+@pytest.mark.parametrize("option", [dict(sea_coupling_flag=1),
                                     dict(sst_anomaly_forcing=True),
                                     dict(lw_band_vectorized=False),
                                     dict(n_ensemble=2)])
