@@ -18,9 +18,12 @@ Phases (each prints one line or more; any failure exits non-zero):
  6. the transform benchmark's path (speedy_tpu_torch.bench_transform at
     T30, fp32), counting kernel launches; then the spectral-transform
     kernels (synthesis, analysis), through their public wrappers, against
-    their plain einsum chain on the card at every T30 batch of that path in
-    fp64 and fp32 and at T85, B=256, in fp32, with their times (the
-    benchmark's for T30 fp32), the einsum chain's and the bound;
+    their plain einsum chain on the card (TRANSFORM_CASES: every T30 batch
+    of that path and the ragged batches 1 and 7, in fp64 and fp32; T85 at
+    B=25, 48 and 256 in fp32 and B=256 in fp64), with their times (the
+    benchmark's for T30 fp32), the einsum chain's, the bound and the
+    kernel's share of it; the analysis kernel's output at the pairs the
+    truncation drops must be exactly 0;
  7. SPPT: boot + 6 fp64 steps with SPPT on, CPU against CUDA, fed the same
     innovations from a numpy seed; then 2 fp32 days with SPPT on the card;
  8. the run path: Model.run over one day with the NetCDF writer, and a
@@ -50,8 +53,11 @@ STEP_BOUND = 1e-10        # relative, CPU vs CUDA prognostics after 6 steps
 TRANSFORM_BOUND = {torch.float64: 1e-12, torch.float32: 1e-5}  # field-normalised
 # the batches the T30 step issues (57/34 synthesis, 48/25 analysis) and 256
 BENCH_BATCHES = [25, 34, 48, 57, 256]
-# every batch the transform benchmark's path runs at T30, and T85 at 256
-TRANSFORM_CASES = (("t30", tuple(BENCH_BATCHES)), ("t85", (256,)))
+# (preset, precisions, batches): every batch the transform benchmark's path
+# runs at T30 and the ragged 1 and 7; T85 at the step-like batches and 256
+TRANSFORM_CASES = (("t30", ("fp64", "fp32"), (1, 7) + tuple(BENCH_BATCHES)),
+                   ("t85", ("fp32",), (25, 48, 256)),
+                   ("t85", ("fp64",), (256,)))
 SPPT_NOISE_SEED = 12345
 N_TIMED = 100
 OUTPUT_NAMES = ["utend", "vtend", "ttend", "qtend", "precnv", "precls",
@@ -67,12 +73,14 @@ def ptxas_summary(log: str):
         m = re.search(r"Function properties for \S*column_physics_kernelI"
                       r"([fd])Li(\d)ELb([01])E", line)
         t = re.search(r"Function properties for \S*(synthesis|analysis)"
-                      r"_kernelI([fd])E", line)
+                      r"_kernelI([fd])(?:Li(\d+)ELi(\d+)E)?E", line)
         if m:
             name = (f"{'fp32' if m.group(1) == 'f' else 'fp64'} kx={m.group(2)}"
                     f" {'sw' if m.group(3) == '1' else 'nosw'}")
         elif t:
             name = f"{t.group(1)} {'fp32' if t.group(2) == 'f' else 'fp64'}"
+            if t.group(3):
+                name += f" FB={t.group(3)} TM={t.group(4)}"
         elif name and "spill" in line:
             spill = line.strip()
         elif name and "Used" in line:
@@ -174,11 +182,11 @@ def bench_path(reps):
 
 def transform_phase(bench):
     """[6] The spectral-transform kernels, through their public wrappers,
-    against their plain einsum chain on the card: every batch of
-    TRANSFORM_CASES, fp64 and fp32 at T30, fp32 at T85. The T30 fp32 times
-    are those of the benchmark's path (``bench``, its records by batch);
-    the others are timed here. Returns (ok, rows by (name, preset,
-    precision, batch))."""
+    against their plain einsum chain on the card, at every case of
+    TRANSFORM_CASES; the analysis output is exactly 0 where the truncation
+    drops the pair. The T30 fp32 times at the benchmark's batches are those
+    of its path (``bench``, its records by batch); the others are timed
+    here. Returns (ok, rows by (name, preset, precision, batch))."""
     from speedy_tpu_torch.bench_transform import bound_ms as transform_bound
     from speedy_tpu_torch.config import from_preset
     from speedy_tpu_torch.geometry import build_geometry_np
@@ -187,16 +195,24 @@ def transform_phase(bench):
 
     ok, rows = True, {}
     rng = np.random.default_rng(1)
-    for preset, batches in TRANSFORM_CASES:
-        sc64 = None
-        for prec in (("fp64", "fp32") if preset == "t30" else ("fp32",)):
+    consts = {}
+
+    def spectral(preset, prec):
+        if (preset, prec) not in consts:
+            c = from_preset(preset, precision=prec)
+            consts[(preset, prec)] = sp.build_spectral(
+                c, build_geometry_np(c), "cuda")
+        return consts[(preset, prec)]
+
+    for preset, precisions, batches in TRANSFORM_CASES:
+        for prec in precisions:
             cfg = from_preset(preset, precision=prec)
             dtype = cfg.rdtype
-            sc = sp.build_spectral(cfg, build_geometry_np(cfg), "cuda")
-            if sc64 is None:
-                sc64 = sp.build_spectral(from_preset(preset, precision="fp64"),
-                                         build_geometry_np(cfg), "cuda")
+            sc, sc64 = spectral(preset, prec), spectral(preset, "fp64")
             dims = (cfg.mx, cfg.nx, cfg.il, cfg.ix)
+            # [mx, nx]: the pairs the truncation drops
+            dropped = (torch.arange(cfg.nx, device="cuda")
+                       >= ft.truncation_extent(sc.cpol_dir).cuda()[:, None])
             for b in batches:
                 spec = torch.as_tensor(rng.standard_normal((b,) + dims[:2]
                                                            + (2,)),
@@ -230,17 +246,23 @@ def transform_phase(bench):
                         plain_ms = time_ms(lambda: plain(sc, x), N_TIMED)
                         lib_ms = time_graph_ms(lambda: plain(sc, x), N_TIMED)
                     b_ms, b_by = transform_bound(d, sc, b)
-                    smem = ft.smem_bytes(d, cfg.mx, cfg.il,
-                                         x.element_size())
+                    smem = ft.smem_bytes(d, *dims, x.element_size())
                     good = err <= bound and finite
+                    zeros = ""
+                    if d == "ana":
+                        exact = bool((k[:, dropped] == 0).all())
+                        good &= exact
+                        zeros = f", truncated pairs exactly 0: {exact}"
                     ok &= good
                     print(f"[6] {name} {preset} {prec} B={b}: error "
-                          f"{err:.3e} (bound {bound:.0e}) finite={finite}, "
-                          f"against the fp64 chain kernel {err64:.2e} twin "
-                          f"{twin64:.2e}; kernel {ms * 1e3:.3f} us (graph), "
-                          f"einsum chain {lib_ms * 1e3:.3f} us (graph) "
-                          f"{plain_ms * 1e3:.3f} us (eager), bound "
-                          f"{b_ms * 1e3:.4f} us ({b_by}); {smem} B shared "
+                          f"{err:.3e} (bound {bound:.0e}) finite={finite}"
+                          f"{zeros}, against the fp64 chain kernel "
+                          f"{err64:.2e} twin {twin64:.2e}; kernel "
+                          f"{ms * 1e3:.3f} us (graph), bound "
+                          f"{b_ms * 1e3:.4f} us ({b_by}), share of the bound "
+                          f"{b_ms / ms:.1%}; einsum chain "
+                          f"{lib_ms * 1e3:.3f} us (graph) "
+                          f"{plain_ms * 1e3:.3f} us (eager); {smem} B shared "
                           f"memory/block {'ok' if good else 'FAILED'}")
                     rows[(name, preset, prec, b)] = dict(
                         ms=ms, plain_ms=plain_ms, library_ms=lib_ms,

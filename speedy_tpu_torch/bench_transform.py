@@ -1,17 +1,22 @@
 """The spectral-transform kernels against the einsum chain on the card.
 
-    python -m speedy_tpu_torch.bench_transform [--preset t30|t85]
-        [--batches 25,34,48,57,256] [--reps 200]
+    python -m speedy_tpu_torch.bench_transform [--preset t30|t85|...]
+        [--batches 25,34,48,57,256] [--reps 200] [--precision fp32|fp64]
+        [--ana-tiles all|2x4,4x2,...]
 
 The counterpart of the JAX package's scripts/bench_pallas_transform.py. For
-each batch B it times, in fp32, synthesis ([B, mx, nx, 2] -> [B, il, ix]) and
-analysis (the reverse) on seeded random fields, through the einsum chain
-of ops/spectral.py and through the kernels of ops/fused_transforms.py,
-each with CUDA events over ``reps`` eager calls and as one CUDA-graph
-replay of ``reps`` calls, and prints one JSON line per batch with those
+each batch B it times, in fp32 (or fp64), synthesis ([B, mx, nx, 2] ->
+[B, il, ix]) and analysis (the reverse) on seeded random fields, through the
+einsum chain of ops/spectral.py and through the kernels of
+ops/fused_transforms.py, each with CUDA events over ``reps`` eager calls and
+as one CUDA-graph replay of ``reps`` calls, and prints one JSON line per
+batch with those
 times (µs per call), the shared memory per block, the least time the card
 could take (bound) and the card's name and power limit. The batches the
-T30 step issues are 57/34 fields in synthesis and 48/25 in analysis.
+T30 step issues are 57/34 fields in synthesis and 48/25 in analysis. With
+``--ana-tiles`` it also times the analysis kernel at each (FB fields, TM
+wavenumbers) tile it is built for (``all``) or at those listed, with each
+one's largest error against the einsum chain (``ana_tiles`` in the record).
 Needs a CUDA device and refuses to run without one.
 """
 from __future__ import annotations
@@ -96,14 +101,16 @@ def time_graph_ms(fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
-def run(preset: str, batches, reps: int):
-    """Time both directions at each batch; returns one record per batch."""
+def run(preset: str, batches, reps: int, precision: str = "fp32",
+        ana_tiles=()):
+    """Time both directions at each batch (and the analysis kernel at each
+    of ``ana_tiles``); returns one record per batch."""
     from .config import from_preset
     from .geometry import build_geometry_np
     from .ops import fused_transforms as ft
     from .ops import spectral as sp
 
-    cfg = from_preset(preset, precision="fp32")
+    cfg = from_preset(preset, precision=precision)
     dtype = cfg.rdtype
     sc = sp.build_spectral(cfg, build_geometry_np(cfg), "cuda")
     mx, nx, il, ix = cfg.mx, cfg.nx, cfg.il, cfg.ix
@@ -115,7 +122,7 @@ def run(preset: str, batches, reps: int):
                                dtype=dtype, device="cuda")
         grid = torch.as_tensor(rng.standard_normal((b, il, ix)),
                                dtype=dtype, device="cuda")
-        rec = {"preset": preset, "precision": "fp32", "batch": b}
+        rec = {"preset": preset, "precision": precision, "batch": b}
         for d, x, chain, kernel in (
                 ("syn", spec, sp.spec_to_grid, ft.fused_spec_to_grid),
                 ("ana", grid, sp.grid_to_spec, ft.fused_grid_to_spec)):
@@ -125,10 +132,20 @@ def run(preset: str, batches, reps: int):
             rec[f"{d}_kernel_us"] = time_ms(lambda: kernel(sc, x), reps) * 1e3
             rec[f"{d}_kernel_graph_us"] = time_graph_ms(
                 lambda: kernel(sc, x), reps) * 1e3
-            rec[f"{d}_smem_bytes"] = ft.smem_bytes(d, mx, il, x.element_size())
+            rec[f"{d}_smem_bytes"] = ft.smem_bytes(d, mx, nx, il, ix,
+                                                   x.element_size())
             b_ms, b_by = bound_ms(d, sc, b)
             rec[f"{d}_bound_us"] = b_ms * 1e3
             rec[f"{d}_bound_by"] = b_by
+        ref = sp.grid_to_spec(sc, grid)
+        for t in ana_tiles:
+            out = ft.launch_analysis(sc, grid, tiles=t)
+            plan = ft.analysis_plan(mx, nx, il, ix, grid.element_size(), t)
+            rec.setdefault("ana_tiles", {})[f"{t[0]}x{t[1]}"] = dict(
+                graph_us=time_graph_ms(
+                    lambda: ft.launch_analysis(sc, grid, tiles=t), reps) * 1e3,
+                error=((out - ref).abs().max() / ref.abs().max()).item(),
+                jc=plan.jc, nc=plan.nc, smem_bytes=plan.smem)
         rec["card"] = card
         records.append(rec)
         print(json.dumps(rec), flush=True)
@@ -137,15 +154,24 @@ def run(preset: str, batches, reps: int):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--preset", default="t30", choices=["t30", "t85"])
+    ap.add_argument("--preset", default="t30",
+                    choices=["t30", "t42", "t63", "t85", "t170"])
     ap.add_argument("--batches", default="25,34,48,57,256")
     ap.add_argument("--reps", type=int, default=200)
+    ap.add_argument("--precision", default="fp32", choices=["fp32", "fp64"])
+    ap.add_argument("--ana-tiles", default="",
+                    help="'all' or FBxTM,... (e.g. 2x4,4x2)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("bench_transform: CUDA is not available", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
-    run(args.preset, [int(x) for x in args.batches.split(",")], args.reps)
+    from .ops.fused_transforms import ANA_BUILT_TILES
+    tiles = (ANA_BUILT_TILES if args.ana_tiles == "all" else
+             [tuple(int(v) for v in t.split("x"))
+              for t in args.ana_tiles.split(",") if t])
+    run(args.preset, [int(x) for x in args.batches.split(",")], args.reps,
+        args.precision, tiles)
     return 0
 
 

@@ -12,6 +12,13 @@ matrix (23.6 MB in fp32 at T30, ~1.3 GB at T85), these read the compact
 ``SpectralConsts`` tables ``cpol_inv``/``cpol_dir`` ``[mx, nx, il]`` and
 ``dft_syn``/``dft_ana`` ``[mx, 2, ix]``.
 
+Synthesis takes one block per field and 8 latitudes. Analysis is two
+register-tiled GEMMs fused in one block of FB fields x TM zonal
+wavenumbers (``ANA_TILES`` per preset and type), its operands staged in
+shared memory in chunks (``analysis_plan``), and it computes only the
+(m, n) pairs the triangular truncation keeps (``truncation_extent``,
+derived once per table); the rest of its output is zero.
+
 On CPU tensors both functions run their plain twin, the einsum chain of
 ``ops/spectral.py`` (``spec_to_grid``/``grid_to_spec``); on CUDA tensors
 they launch the kernel or raise. fp32 accumulates in fp32; fp64 in fp64
@@ -23,6 +30,8 @@ keeps the einsum chain; ``speedy_tpu_torch.bench_transform`` runs these.
 from __future__ import annotations
 
 import ctypes
+import weakref
+from typing import NamedTuple
 
 import torch
 
@@ -30,8 +39,27 @@ from . import spectral as sp
 
 SOURCES = ("spectral_transforms.cu",)
 SYN_TILE_J = 8          # latitudes per synthesis block (a multiple of 4)
-ANA_TILE_M = 4          # zonal wavenumbers per analysis block
-MAX_SMEM_BYTES = 48 * 1024  # static launch limit without an opt-in
+STATIC_SMEM_BYTES = 48 * 1024  # what a launch gets without an opt-in
+MAX_SMEM_BYTES = 232448  # 227 KB, the most an H100 block may opt in to
+# two analysis blocks fit one SM's 228 KB (1 KB reserved per block)
+ANA_SMEM_TARGET = 115712
+# as in the kernel source: threads per block, values of n per thread in
+# stage 2, zonal wavenumbers at most
+ANA_THREADS, ANA_RN, ANA_MAX_M = 256, 2, 256
+# the (FB fields, TM zonal wavenumbers) per block the kernel is built for
+ANA_BUILT_TILES = ((1, 4), (2, 2), (2, 4), (4, 2), (4, 4), (1, 8), (2, 8),
+                   (4, 8))
+# the wrapper's pick, by mx (trunc + 1) and bytes per value: the fastest
+# tiles of `bench_transform --ana-tiles all` on the H100 at T30 (the step's
+# batches) and T85 (B=256); T42 follows T30, T63 and T170 follow T85
+ANA_TILES = {
+    31: {4: (2, 4), 8: (2, 4)},     # T30
+    43: {4: (2, 4), 8: (2, 4)},     # T42
+    64: {4: (2, 8), 8: (1, 8)},     # T63
+    86: {4: (2, 8), 8: (1, 8)},     # T85
+    171: {4: (2, 8), 8: (1, 8)},    # T170
+}
+ANA_DEFAULT_TILES = (2, 4)
 
 launches_syn = 0
 launches_ana = 0
@@ -42,31 +70,129 @@ def reset_launches() -> None:
     launches_syn = launches_ana = 0
 
 
-def smem_bytes(direction: str, mx: int, il: int, itemsize: int) -> int:
+class AnaPlan(NamedTuple):
+    fb: int      # fields per block
+    tm: int      # zonal wavenumbers per block
+    jc: int      # latitudes per grid chunk (stage 1)
+    nc: int      # values of n per cpol_dir chunk (stage 2)
+    early: bool  # cpol_dir staged with stage 1's first chunk (one chunk)
+    smem: int    # bytes of shared memory per block
+
+
+def ana_max_rows(tm: int) -> int:
+    """Most rows (field, latitude) of a grid chunk: one per thread and
+    latitude row it holds (4, or 2 at TM >= 8), as in the kernel."""
+    return ANA_THREADS * (2 if tm >= 8 else 4)
+
+
+def _padded(n: int, vn: int) -> int:
+    """Row stride in shared memory: an odd number of 16-byte vectors."""
+    return n + vn if (n // vn) % 2 == 0 else n
+
+
+def analysis_smem(fb: int, tm: int, il: int, ix: int, jc: int, nc: int,
+                  early: bool, itemsize: int) -> int:
+    """Shared memory of one analysis block, as the kernel lays it out: the
+    intermediate fm [fb, 2 tm, il], stage 1's dft rows and grid chunk
+    [2 tm + fb jc, ix] and stage 2's cpol_dir chunk [tm, nc, il] (or one
+    set of its partial sums), rows padded; the two stages share their space
+    unless ``early``."""
+    vn = 16 // itemsize
+    ilp, ixp = _padded(il, vn), _padded(ix, vn)
+    items = tm * -(-nc // ANA_RN)
+    stage1 = (2 * tm + fb * jc) * ixp
+    stage2 = max(tm * nc * ilp, items * 2 * fb * ANA_RN)
+    work = stage1 + stage2 if early else max(stage1, stage2)
+    return itemsize * (fb * 2 * tm * ilp + work)
+
+
+def analysis_plan(mx: int, nx: int, il: int, ix: int, itemsize: int,
+                  tiles=None) -> AnaPlan:
+    """The analysis launch: the tiles for the preset and type (or
+    ``tiles``), the largest grid chunk (a divisor of il) and cpol_dir
+    chunk that keep a block within ANA_SMEM_TARGET (two blocks per SM), or
+    else within MAX_SMEM_BYTES; the whole cpol_dir slice staged early,
+    beside stage 1's largest chunk, where that fits the target. Raises
+    ValueError if nothing fits."""
+    fb, tm = tiles or ANA_TILES.get(mx, {}).get(itemsize, ANA_DEFAULT_TILES)
+    if (fb, tm) not in ANA_BUILT_TILES:
+        raise ValueError(f"the analysis kernel is not built for FB={fb}, "
+                         f"TM={tm} (built: {ANA_BUILT_TILES})")
+    vn = 16 // itemsize
+    if il % vn or ix % vn or ix < 2 * tm or mx > ANA_MAX_M:
+        raise ValueError(f"mx={mx}, il={il}, ix={ix}: the analysis kernel "
+                         f"needs rows of whole 16-byte vectors, ix >= "
+                         f"{2 * tm} and mx <= {ANA_MAX_M}")
+    jcs = [d for d in range(il, 0, -1)
+           if il % d == 0 and fb * d <= ana_max_rows(tm)]
+    ncs = range(min(nx, ANA_THREADS * ANA_RN // tm), 0, -1)
+    for budget in (ANA_SMEM_TARGET, MAX_SMEM_BYTES):
+        jc = next((d for d in jcs if analysis_smem(
+            fb, tm, il, ix, d, 1, False, itemsize) <= budget), None)
+        nc = next((n for n in ncs if analysis_smem(
+            fb, tm, il, ix, 1, n, False, itemsize) <= budget), None)
+        if jc and nc:
+            early = (nc == nx and jc == jcs[0] and budget == ANA_SMEM_TARGET
+                     and analysis_smem(fb, tm, il, ix, jc, nc, True,
+                                       itemsize) <= budget)
+            return AnaPlan(fb, tm, jc, nc, early, analysis_smem(
+                fb, tm, il, ix, jc, nc, early, itemsize))
+    raise ValueError(f"the analysis kernel does not fit {MAX_SMEM_BYTES} "
+                     f"bytes of shared memory at il={il}, ix={ix}, "
+                     f"{itemsize}-byte values, FB={fb}, TM={tm}")
+
+
+def smem_bytes(direction: str, mx: int, nx: int, il: int, ix: int,
+               itemsize: int) -> int:
     """Shared memory per block that the launch asks for: the tile of the
-    intermediate, tile_j x mx x 2 (synthesis) or il x tile_m x 2
-    (analysis) values."""
+    intermediate, tile_j x mx x 2 values (synthesis), or the analysis
+    plan's."""
     if direction == "syn":
         return SYN_TILE_J * mx * 2 * itemsize
     if direction == "ana":
-        return il * ANA_TILE_M * 2 * itemsize
+        return analysis_plan(mx, nx, il, ix, itemsize).smem
     raise ValueError(f"direction {direction!r} is 'syn' or 'ana'")
 
 
-_fns = {}
+_extents = {}
 
 
-def _launcher(direction: str):
-    """The C entry point for ``direction``, built and bound at first use."""
-    if direction not in _fns:
+def truncation_extent(cpol_dir: torch.Tensor) -> torch.Tensor:
+    """Per zonal wavenumber m, one past the last n whose row of cpol_dir
+    [mx, nx, il] is nonzero (int32 [mx], on the CPU: the launch passes it
+    by value): the analysis kernel computes the rows below it and writes
+    zeros above. Computed once per table and kept while the table lives."""
+    key = id(cpol_dir)
+    hit = _extents.get(key)
+    if hit is None or hit[0]() is not cpol_dir:
+        nonzero = (cpol_dir != 0).any(dim=-1)                 # [mx, nx]
+        n1 = torch.arange(1, nonzero.shape[1] + 1, device=nonzero.device)
+        extent = (nonzero * n1).amax(dim=-1).to(torch.int32).cpu()
+        hit = _extents[key] = (weakref.ref(cpol_dir), extent)
+        weakref.finalize(cpol_dir, _extents.pop, key, None)
+    return hit[1]
+
+
+_lib = None
+
+
+def _library():
+    """The transform library with its entry points bound, built at first
+    use."""
+    global _lib
+    if _lib is None:
         from ..utils import native
         lib = native.load("spectral_transforms", SOURCES)
-        fn = getattr(lib, "spectral_synthesis_launch" if direction == "syn"
-                     else "spectral_analysis_launch")
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p] * 5
-        _fns[direction] = fn
-    return _fns[direction]
+        lib.spectral_synthesis_launch.restype = ctypes.c_int
+        lib.spectral_synthesis_launch.argtypes = (
+            [ctypes.c_int] * 7 + [ctypes.c_void_p] * 5)
+        lib.spectral_analysis_launch.restype = ctypes.c_int
+        lib.spectral_analysis_launch.argtypes = (
+            [ctypes.c_int] * 11 + [ctypes.c_void_p] * 6)
+        lib.spectral_analysis_smem_bytes.restype = ctypes.c_longlong
+        lib.spectral_analysis_smem_bytes.argtypes = [ctypes.c_int] * 8
+        _lib = lib
+    return _lib
 
 
 def _check(name: str, x: torch.Tensor, shape, dtype, device) -> None:
@@ -76,72 +202,86 @@ def _check(name: str, x: torch.Tensor, shape, dtype, device) -> None:
     if tuple(x.shape) != tuple(shape) or not x.is_contiguous():
         raise ValueError(f"{name}: shape {tuple(x.shape)} (contiguous="
                          f"{x.is_contiguous()}), expected {tuple(shape)}")
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name}: data not aligned to 16 bytes")
 
 
-def _launch(direction: str, x: torch.Tensor, tables, dims, out_shape):
-    """Launch one direction's kernel on the CUDA tensor ``x`` [B, ...] with
-    ``tables`` (two tensors, in the kernel's order) and ``dims`` (mx, nx,
-    il, ix) into a new tensor of ``out_shape``, on the tensors' device and
-    its current stream."""
-    global launches_syn, launches_ana
+def _check_inputs(x: torch.Tensor, tables, table_shapes) -> None:
+    """``x`` and its tables are contiguous CUDA tensors of one float type
+    on one device, with the tables' shapes."""
     if x.device.type != "cuda":
         raise ValueError(f"the spectral-transform kernels need CUDA tensors, "
                          f"got {x.device}")
     if x.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"unsupported dtype {x.dtype}")
-    mx, nx, il, ix = dims
-    nbytes = smem_bytes(direction, mx, il, x.element_size())
-    if nbytes > MAX_SMEM_BYTES:
-        raise ValueError(f"{nbytes} bytes of shared memory per block exceed "
-                         f"{MAX_SMEM_BYTES}")
-    table_shapes = ([(mx, nx, il), (mx, 2, ix)] if direction == "syn"
-                    else [(mx, 2, ix), (mx, nx, il)])
     _check("input", x, x.shape, x.dtype, x.device)
     for i, (t, s) in enumerate(zip(tables, table_shapes)):
         _check(f"table {i}", t, s, x.dtype, x.device)
-    b = x.shape[0]
-    out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
-    if b == 0:
-        return out
-    fn = _launcher(direction)
-    tile = SYN_TILE_J if direction == "syn" else ANA_TILE_M
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(int(x.dtype == torch.float64), b, mx, nx, il, ix, tile,
-                 x.data_ptr(), tables[0].data_ptr(), tables[1].data_ptr(),
-                 out.data_ptr(), stream)
+
+
+def _raise_on(err: int, direction: str) -> None:
     if err != 0:
         raise RuntimeError(f"spectral {direction} kernel launch failed: CUDA "
                            f"error {err}")
-    if direction == "syn":
-        launches_syn += 1
-    else:
-        launches_ana += 1
-    return out
 
 
 def launch_synthesis(sc: sp.SpectralConsts, spec: torch.Tensor
                      ) -> torch.Tensor:
     """The synthesis kernel on the CUDA tensor spec [B, mx, nx, 2]."""
+    global launches_syn
     mx, nx, il = sc.cpol_inv.shape
     if spec.dim() != 4 or tuple(spec.shape[1:]) != (mx, nx, 2):
         raise ValueError(f"spec shape {tuple(spec.shape)}, expected "
                          f"[B, {mx}, {nx}, 2]")
     ix = sc.dft_syn.shape[-1]
-    return _launch("syn", spec, (sc.cpol_inv, sc.dft_syn), (mx, nx, il, ix),
-                   (spec.shape[0], il, ix))
+    _check_inputs(spec, (sc.cpol_inv, sc.dft_syn), [(mx, nx, il), (mx, 2, ix)])
+    nbytes = smem_bytes("syn", mx, nx, il, ix, spec.element_size())
+    if nbytes > STATIC_SMEM_BYTES:
+        raise ValueError(f"{nbytes} bytes of shared memory per block exceed "
+                         f"{STATIC_SMEM_BYTES}")
+    b = spec.shape[0]
+    out = torch.empty((b, il, ix), dtype=spec.dtype, device=spec.device)
+    if b == 0:
+        return out
+    fn = _library().spectral_synthesis_launch
+    with torch.cuda.device(spec.device):
+        stream = torch.cuda.current_stream(spec.device).cuda_stream
+        err = fn(int(spec.dtype == torch.float64), b, mx, nx, il, ix,
+                 SYN_TILE_J, spec.data_ptr(), sc.cpol_inv.data_ptr(),
+                 sc.dft_syn.data_ptr(), out.data_ptr(), stream)
+    _raise_on(err, "synthesis")
+    launches_syn += 1
+    return out
 
 
-def launch_analysis(sc: sp.SpectralConsts, grid: torch.Tensor
+def launch_analysis(sc: sp.SpectralConsts, grid: torch.Tensor, tiles=None
                     ) -> torch.Tensor:
-    """The analysis kernel on the CUDA tensor grid [B, il, ix]."""
+    """The analysis kernel on the CUDA tensor grid [B, il, ix]; ``tiles``
+    (FB, TM) overrides the preset's pick (the benchmark's sweep)."""
+    global launches_ana
     mx, nx, il = sc.cpol_dir.shape
     ix = sc.dft_ana.shape[-1]
     if grid.dim() != 3 or tuple(grid.shape[1:]) != (il, ix):
         raise ValueError(f"grid shape {tuple(grid.shape)}, expected "
                          f"[B, {il}, {ix}]")
-    return _launch("ana", grid, (sc.dft_ana, sc.cpol_dir), (mx, nx, il, ix),
-                   (grid.shape[0], mx, nx, 2))
+    _check_inputs(grid, (sc.dft_ana, sc.cpol_dir), [(mx, 2, ix), (mx, nx, il)])
+    plan = analysis_plan(mx, nx, il, ix, grid.element_size(), tiles)
+    b = grid.shape[0]
+    out = torch.empty((b, mx, nx, 2), dtype=grid.dtype, device=grid.device)
+    if b == 0:
+        return out
+    extent = truncation_extent(sc.cpol_dir)
+    fn = _library().spectral_analysis_launch
+    with torch.cuda.device(grid.device):
+        stream = torch.cuda.current_stream(grid.device).cuda_stream
+        err = fn(int(grid.dtype == torch.float64), b, mx, nx, il, ix,
+                 plan.fb, plan.tm, plan.jc, plan.nc, int(plan.early),
+                 grid.data_ptr(),
+                 sc.dft_ana.data_ptr(), sc.cpol_dir.data_ptr(),
+                 extent.data_ptr(), out.data_ptr(), stream)
+    _raise_on(err, "analysis")
+    launches_ana += 1
+    return out
 
 
 def fused_spec_to_grid(sc: sp.SpectralConsts, spec: torch.Tensor

@@ -7,9 +7,12 @@ runs where JAX is absent:
 The column-physics kernel is held against its plain PyTorch chain on the
 same CUDA tensors (field-normalised error, fp64 <= 1e-12, fp32 <= 1e-4)
 for every built level count, the spectral-transform kernels against their
-einsum chain (fp64 <= 1e-12, fp32 <= 1e-5) at T30 and T85, and the CUDA
-model against the CPU model after boot + 6 fp64 steps (<= 1e-10), with
-SPPT off and on (the same innovations from a numpy seed).
+einsum chain (fp64 <= 1e-12, fp32 <= 1e-5) at the step's, ragged and large
+batches at T30 and T85 and at every preset up to T170 (the analysis
+kernel's largest shared-memory case is T170 fp64), with the pairs the
+truncation drops exactly 0, and the CUDA model against the CPU model after
+boot + 6 fp64 steps (<= 1e-10), with SPPT off and on (the same innovations
+from a numpy seed).
 """
 import os
 import sys
@@ -62,10 +65,7 @@ def test_kernel_matches_plain_chain(smoke, bc, kx, precision):
                 assert e <= bound, (sw, name, e)
 
 
-@pytest.mark.parametrize("preset,batch", [("t30", 25), ("t30", 57),
-                                          ("t85", 48)])
-@pytest.mark.parametrize("precision", ["fp64", "fp32"])
-def test_transform_kernels_match_einsum(smoke, preset, batch, precision):
+def spectral_case(preset, precision, batch):
     cfg = from_preset(preset, precision=precision)
     sc = sp.build_spectral(cfg, build_geometry_np(cfg), "cuda")
     rng = np.random.default_rng(batch)
@@ -73,13 +73,85 @@ def test_transform_kernels_match_einsum(smoke, preset, batch, precision):
                            dtype=cfg.rdtype, device="cuda")
     grid = torch.as_tensor(rng.standard_normal((batch, cfg.il, cfg.ix)),
                            dtype=cfg.rdtype, device="cuda")
+    return cfg, sc, spec, grid
+
+
+# the step's batches (25/48 analysis, 57 synthesis), ragged and large ones
+# at T30 and T85; every other preset up to T170 at a small batch
+TRANSFORM_CASES = (
+    [(p, b, prec) for p, batches in (("t30", (1, 7, 25, 48, 57, 256)),
+                                     ("t85", (25, 48, 256)))
+     for b in batches for prec in ("fp64", "fp32")]
+    + [(p, 3, prec) for p in ("t42", "t63", "t170")
+       for prec in ("fp64", "fp32")])
+
+
+@pytest.mark.parametrize("preset,batch,precision", TRANSFORM_CASES)
+def test_transform_kernels_match_einsum(smoke, preset, batch, precision):
+    cfg, sc, spec, grid = spectral_case(preset, precision, batch)
     bound = smoke.TRANSFORM_BOUND[cfg.rdtype]
     ft.reset_launches()
     for kernel, plain, x in ((ft.fused_spec_to_grid, sp.spec_to_grid, spec),
                              (ft.fused_grid_to_spec, sp.grid_to_spec, grid)):
-        (err, _), = smoke.field_errors([kernel(sc, x)], [plain(sc, x)])
+        out = kernel(sc, x)
+        (err, _), = smoke.field_errors([out], [plain(sc, x)])
         assert err <= bound, (kernel.__name__, err)
     assert ft.launches_syn == 1 and ft.launches_ana == 1
+    # the pairs the truncation drops are not computed: exactly 0
+    dropped = (torch.arange(cfg.nx, device="cuda")
+               >= ft.truncation_extent(sc.cpol_dir).cuda()[:, None])
+    assert int(dropped.sum()) > 0
+    assert bool((out[:, dropped] == 0).all())
+
+
+@pytest.mark.parametrize("tiles", ft.ANA_BUILT_TILES)
+@pytest.mark.parametrize("precision", ["fp64", "fp32"])
+def test_analysis_every_built_tile(smoke, tiles, precision):
+    """Each (FB, TM) the kernel is built for, at a ragged batch."""
+    cfg, sc, _, grid = spectral_case("t30", precision, 7)
+    out = ft.launch_analysis(sc, grid, tiles=tiles)
+    (err, _), = smoke.field_errors([out], [sp.grid_to_spec(sc, grid)])
+    assert err <= smoke.TRANSFORM_BOUND[cfg.rdtype], err
+
+
+@pytest.mark.parametrize("preset", ["t30", "t42", "t63", "t85", "t170"])
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_analysis_smem_matches_kernel(smoke, preset, itemsize):
+    """The wrapper's shared-memory plan is what the kernel asks for."""
+    cfg = from_preset(preset)
+    plan = ft.analysis_plan(cfg.mx, cfg.nx, cfg.il, cfg.ix, itemsize)
+    lib = ft._library()
+    assert lib.spectral_analysis_smem_bytes(
+        int(itemsize == 8), plan.fb, plan.tm, cfg.il, cfg.ix, plan.jc,
+        plan.nc, int(plan.early)) == plan.smem
+    assert plan.smem <= ft.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("case", ["dtype", "mixed", "noncontiguous", "cpu"])
+def test_analysis_refuses_bad_input(smoke, case):
+    cfg, sc, _, grid = spectral_case("t30", "fp32", 4)
+    if case == "dtype":
+        grid = grid.half()
+    elif case == "mixed":
+        grid = grid.double()
+    elif case == "noncontiguous":
+        grid = grid.transpose(0, 1).contiguous().transpose(0, 1)
+    else:
+        grid = grid.cpu()
+    ft.reset_launches()
+    with pytest.raises(ValueError):
+        ft.launch_analysis(sc, grid)
+    assert ft.launches_ana == 0
+
+
+def test_analysis_counts_launches(smoke):
+    _, sc, _, grid = spectral_case("t30", "fp32", 25)
+    ft.reset_launches()
+    for n in range(1, 4):
+        ft.fused_grid_to_spec(sc, grid)
+        assert ft.launches_ana == n
+    ft.fused_grid_to_spec(sc, grid[:0])   # nothing to launch
+    assert ft.launches_ana == 3 and ft.launches_syn == 0
 
 
 @pytest.mark.parametrize("sppt_on", [False, True])

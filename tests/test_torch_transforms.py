@@ -15,7 +15,9 @@ ops/spectral.py) on CPU tensors.
 * Against the JAX einsum path in fp64 at T30 and T85: max |port - jax| /
   max |jax| <= 1e-12.
 * The kernel launchers refuse CPU tensors, and the CPU path launches
-  nothing. The kernels themselves are held against the twin on the card in
+  nothing. The shared-memory plans fit every preset, and the per-m
+  truncation extent the analysis wrapper passes matches cpol_dir. The
+  kernels themselves are held against the twin on the card in
   tests/test_torch_gpu.py.
 """
 import numpy as np
@@ -112,8 +114,47 @@ def test_kernel_refuses_cpu_tensors(direction):
 
 @pytest.mark.parametrize("preset", ["t30", "t85", "t170"])
 def test_shared_memory_fits_every_preset(preset):
-    """Each block's intermediate fits the launch without an opt-in, in
-    fp64, at every preset up to T170."""
+    """In fp32 and fp64 at every preset up to T170, synthesis fits the
+    launch without an opt-in, and the analysis plan fits the H100's
+    227 KB per block and the kernel's limits on its chunks."""
     cfg = tconfig.from_preset(preset)
-    for d in ("syn", "ana"):
-        assert ft.smem_bytes(d, cfg.mx, cfg.il, 8) <= ft.MAX_SMEM_BYTES
+    dims = (cfg.mx, cfg.nx, cfg.il, cfg.ix)
+    for itemsize in (4, 8):
+        assert ft.smem_bytes("syn", *dims, itemsize) <= ft.STATIC_SMEM_BYTES
+        plan = ft.analysis_plan(*dims, itemsize)
+        assert ft.smem_bytes("ana", *dims, itemsize) == plan.smem
+        assert plan.smem <= ft.MAX_SMEM_BYTES
+        assert (plan.fb, plan.tm) in ft.ANA_BUILT_TILES
+        assert cfg.il % plan.jc == 0
+        assert plan.fb * plan.jc <= ft.ana_max_rows(plan.tm)
+        assert plan.tm * -(-plan.nc // ft.ANA_RN) <= ft.ANA_THREADS
+        assert plan.smem == ft.analysis_smem(plan.fb, plan.tm, cfg.il,
+                                             cfg.ix, plan.jc, plan.nc,
+                                             plan.early, itemsize)
+        assert not plan.early or plan.nc == cfg.nx
+
+
+def test_analysis_plan_refuses_what_does_not_fit():
+    with pytest.raises(ValueError, match="not built"):
+        ft.analysis_plan(31, 32, 48, 96, 4, tiles=(3, 3))
+    with pytest.raises(ValueError, match="shared memory"):
+        ft.analysis_plan(31, 32, 48, 8192, 8)
+
+
+@pytest.mark.parametrize("preset", ["t30", "t42", "t63", "t85", "t170"])
+def test_truncation_extent_matches_cpol_dir(preset):
+    """The per-m extent the analysis wrapper passes: the rows of cpol_dir
+    at and above it are zero, the row below it is not, and it is the
+    triangular truncation's n <= min(trunc, trunc + 1 - m). Computed once
+    per table."""
+    cfg = tconfig.from_preset(preset, precision="fp32")
+    sc = tsp.build_spectral(cfg, build_geometry_np(cfg), "cpu")
+    extent = ft.truncation_extent(sc.cpol_dir)
+    assert extent.dtype == torch.int32 and tuple(extent.shape) == (cfg.mx,)
+    m = np.arange(cfg.mx)
+    np.testing.assert_array_equal(
+        extent.numpy(), np.minimum(cfg.trunc, cfg.trunc + 1 - m) + 1)
+    rows = (sc.cpol_dir != 0).any(dim=-1)              # [mx, nx]
+    for mm, e in enumerate(extent.tolist()):
+        assert not rows[mm, e:].any() and rows[mm, e - 1]
+    assert ft.truncation_extent(sc.cpol_dir) is extent
