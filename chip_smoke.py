@@ -20,10 +20,10 @@ Phases (each prints one line or more; any failure exits non-zero):
     kernels (synthesis, analysis), through their public wrappers, against
     their plain einsum chain on the card (TRANSFORM_CASES: every T30 batch
     of that path and the ragged batches 1 and 7, in fp64 and fp32; T85 at
-    B=25, 48 and 256 in fp32 and B=256 in fp64), with their times (the
+    B=25, 48, 57 and 256 in fp32 and B=256 in fp64), with their times (the
     benchmark's for T30 fp32), the einsum chain's, the bound and the
-    kernel's share of it; the analysis kernel's output at the pairs the
-    truncation drops must be exactly 0;
+    kernel's share of it, and the synthesis tile picked; the analysis
+    kernel's output at the pairs the truncation drops must be exactly 0;
  7. SPPT: boot + 6 fp64 steps with SPPT on, CPU against CUDA, fed the same
     innovations from a numpy seed; then 2 fp32 days with SPPT on the card;
  8. the run path: Model.run over one day with the NetCDF writer, and a
@@ -56,7 +56,7 @@ BENCH_BATCHES = [25, 34, 48, 57, 256]
 # (preset, precisions, batches): every batch the transform benchmark's path
 # runs at T30 and the ragged 1 and 7; T85 at the step-like batches and 256
 TRANSFORM_CASES = (("t30", ("fp64", "fp32"), (1, 7) + tuple(BENCH_BATCHES)),
-                   ("t85", ("fp32",), (25, 48, 256)),
+                   ("t85", ("fp32",), (25, 48, 57, 256)),
                    ("t85", ("fp64",), (256,)))
 SPPT_NOISE_SEED = 12345
 N_TIMED = 100
@@ -73,14 +73,16 @@ def ptxas_summary(log: str):
         m = re.search(r"Function properties for \S*column_physics_kernelI"
                       r"([fd])Li(\d)ELb([01])E", line)
         t = re.search(r"Function properties for \S*(synthesis|analysis)"
-                      r"_kernelI([fd])(?:Li(\d+)ELi(\d+)E)?E", line)
+                      r"_kernelI([fd])Li(\d+)ELi(\d+)E(?:Li(\d+)E)?E", line)
         if m:
             name = (f"{'fp32' if m.group(1) == 'f' else 'fp64'} kx={m.group(2)}"
                     f" {'sw' if m.group(3) == '1' else 'nosw'}")
         elif t:
             name = f"{t.group(1)} {'fp32' if t.group(2) == 'f' else 'fp64'}"
-            if t.group(3):
-                name += f" FB={t.group(3)} TM={t.group(4)}"
+            second = "TJ" if t.group(1) == "synthesis" else "TM"
+            name += f" FB={t.group(3)} {second}={t.group(4)}"
+            if t.group(5):
+                name += f" RI={t.group(5)}"
         elif name and "spill" in line:
             spill = line.strip()
         elif name and "Used" in line:
@@ -246,17 +248,21 @@ def transform_phase(bench):
                         plain_ms = time_ms(lambda: plain(sc, x), N_TIMED)
                         lib_ms = time_graph_ms(lambda: plain(sc, x), N_TIMED)
                     b_ms, b_by = transform_bound(d, sc, b)
-                    smem = ft.smem_bytes(d, *dims, x.element_size())
+                    smem = ft.smem_bytes(d, *dims, x.element_size(), b)
                     good = err <= bound and finite
-                    zeros = ""
+                    note = ""
+                    if d == "syn":
+                        plan = ft.synthesis_plan(*dims, x.element_size(), b)
+                        note = (f", tile FB={plan.fb} TJ={plan.tj} "
+                                 f"TI={plan.ti} mc={plan.mc}")
                     if d == "ana":
                         exact = bool((k[:, dropped] == 0).all())
                         good &= exact
-                        zeros = f", truncated pairs exactly 0: {exact}"
+                        note = f", truncated pairs exactly 0: {exact}"
                     ok &= good
                     print(f"[6] {name} {preset} {prec} B={b}: error "
                           f"{err:.3e} (bound {bound:.0e}) finite={finite}"
-                          f"{zeros}, against the fp64 chain kernel "
+                          f"{note}, against the fp64 chain kernel "
                           f"{err64:.2e} twin {twin64:.2e}; kernel "
                           f"{ms * 1e3:.3f} us (graph), bound "
                           f"{b_ms * 1e3:.4f} us ({b_by}), share of the bound "

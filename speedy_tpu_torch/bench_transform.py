@@ -2,7 +2,7 @@
 
     python -m speedy_tpu_torch.bench_transform [--preset t30|t85|...]
         [--batches 25,34,48,57,256] [--reps 200] [--precision fp32|fp64]
-        [--ana-tiles all|2x4,4x2,...]
+        [--ana-tiles all|2x4,4x2,...] [--syn-tiles all|FBxTJ[xTI],...]
 
 The counterpart of the JAX package's scripts/bench_pallas_transform.py. For
 each batch B it times, in fp32 (or fp64), synthesis ([B, mx, nx, 2] ->
@@ -16,7 +16,11 @@ could take (bound) and the card's name and power limit. The batches the
 T30 step issues are 57/34 fields in synthesis and 48/25 in analysis. With
 ``--ana-tiles`` it also times the analysis kernel at each (FB fields, TM
 wavenumbers) tile it is built for (``all``) or at those listed, with each
-one's largest error against the einsum chain (``ana_tiles`` in the record).
+one's largest error against the einsum chain (``ana_tiles`` in the record);
+``--syn-tiles`` does the same for the synthesis kernel's (FB fields, TJ
+latitudes[, TI longitudes]) tiles, those built for the precision with
+``all`` (``syn_tiles``), with the tile the
+wrapper picks for the batch (``syn_pick``).
 Needs a CUDA device and refuses to run without one.
 """
 from __future__ import annotations
@@ -102,9 +106,10 @@ def time_graph_ms(fn, n: int) -> float:
 
 
 def run(preset: str, batches, reps: int, precision: str = "fp32",
-        ana_tiles=()):
-    """Time both directions at each batch (and the analysis kernel at each
-    of ``ana_tiles``); returns one record per batch."""
+        ana_tiles=(), syn_tiles=()):
+    """Time both directions at each batch (and the analysis and synthesis
+    kernels at each of ``ana_tiles`` and ``syn_tiles``); returns one record
+    per batch."""
     from .config import from_preset
     from .geometry import build_geometry_np
     from .ops import fused_transforms as ft
@@ -133,7 +138,7 @@ def run(preset: str, batches, reps: int, precision: str = "fp32",
             rec[f"{d}_kernel_graph_us"] = time_graph_ms(
                 lambda: kernel(sc, x), reps) * 1e3
             rec[f"{d}_smem_bytes"] = ft.smem_bytes(d, mx, nx, il, ix,
-                                                   x.element_size())
+                                                   x.element_size(), b)
             b_ms, b_by = bound_ms(d, sc, b)
             rec[f"{d}_bound_us"] = b_ms * 1e3
             rec[f"{d}_bound_by"] = b_by
@@ -146,6 +151,20 @@ def run(preset: str, batches, reps: int, precision: str = "fp32",
                     lambda: ft.launch_analysis(sc, grid, tiles=t), reps) * 1e3,
                 error=((out - ref).abs().max() / ref.abs().max()).item(),
                 jc=plan.jc, nc=plan.nc, smem_bytes=plan.smem)
+        if syn_tiles:
+            ref = sp.spec_to_grid(sc, spec)
+            pick = ft.synthesis_plan(mx, nx, il, ix, spec.element_size(), b)
+            rec["syn_pick"] = f"{pick.fb}x{pick.tj}x{pick.ti}"
+        for t in syn_tiles:
+            out = ft.launch_synthesis(sc, spec, tiles=t)
+            plan = ft.synthesis_plan(mx, nx, il, ix, spec.element_size(), b,
+                                     t)
+            rec.setdefault("syn_tiles", {})["x".join(map(str, t))] = dict(
+                graph_us=time_graph_ms(
+                    lambda: ft.launch_synthesis(sc, spec, tiles=t), reps)
+                * 1e3,
+                error=((out - ref).abs().max() / ref.abs().max()).item(),
+                ti=plan.ti, mc=plan.mc, smem_bytes=plan.smem)
         rec["card"] = card
         records.append(rec)
         print(json.dumps(rec), flush=True)
@@ -161,17 +180,23 @@ def main(argv=None) -> int:
     ap.add_argument("--precision", default="fp32", choices=["fp32", "fp64"])
     ap.add_argument("--ana-tiles", default="",
                     help="'all' or FBxTM,... (e.g. 2x4,4x2)")
+    ap.add_argument("--syn-tiles", default="",
+                    help="'all' or FBxTJ[xTI],... (e.g. 1x8,4x16x128)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("bench_transform: CUDA is not available", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
-    from .ops.fused_transforms import ANA_BUILT_TILES
-    tiles = (ANA_BUILT_TILES if args.ana_tiles == "all" else
-             [tuple(int(v) for v in t.split("x"))
-              for t in args.ana_tiles.split(",") if t])
+    from .ops.fused_transforms import ANA_BUILT_TILES, SYN_BUILT_TILES
+
+    def tiles(arg, built):
+        return built if arg == "all" else [
+            tuple(int(v) for v in t.split("x")) for t in arg.split(",") if t]
+
     run(args.preset, [int(x) for x in args.batches.split(",")], args.reps,
-        args.precision, tiles)
+        args.precision, tiles(args.ana_tiles, ANA_BUILT_TILES),
+        tiles(args.syn_tiles,
+              SYN_BUILT_TILES[8 if args.precision == "fp64" else 4]))
     return 0
 
 

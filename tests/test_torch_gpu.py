@@ -8,9 +8,11 @@ The column-physics kernel is held against its plain PyTorch chain on the
 same CUDA tensors (field-normalised error, fp64 <= 1e-12, fp32 <= 1e-4)
 for every built level count, the spectral-transform kernels against their
 einsum chain (fp64 <= 1e-12, fp32 <= 1e-5) at the step's, ragged and large
-batches at T30 and T85 and at every preset up to T170 (the analysis
-kernel's largest shared-memory case is T170 fp64), with the pairs the
-truncation drops exactly 0, and the CUDA model against the CPU model after
+batches at T30 and T85 and at every preset up to T170 (both kernels'
+largest shared-memory case is T170 fp64) and at every tile they are built
+for, with the analysis output exactly 0 at the pairs the truncation drops
+and the synthesis output blind to its input there, and the CUDA model
+against the CPU model after
 boot + 6 fp64 steps (<= 1e-10), with SPPT off and on (the same innovations
 from a numpy seed).
 """
@@ -80,7 +82,7 @@ def spectral_case(preset, precision, batch):
 # at T30 and T85; every other preset up to T170 at a small batch
 TRANSFORM_CASES = (
     [(p, b, prec) for p, batches in (("t30", (1, 7, 25, 48, 57, 256)),
-                                     ("t85", (25, 48, 256)))
+                                     ("t85", (25, 48, 57, 256)))
      for b in batches for prec in ("fp64", "fp32")]
     + [(p, 3, prec) for p in ("t42", "t63", "t170")
        for prec in ("fp64", "fp32")])
@@ -104,54 +106,106 @@ def test_transform_kernels_match_einsum(smoke, preset, batch, precision):
     assert bool((out[:, dropped] == 0).all())
 
 
-@pytest.mark.parametrize("tiles", ft.ANA_BUILT_TILES)
-@pytest.mark.parametrize("precision", ["fp64", "fp32"])
-def test_analysis_every_built_tile(smoke, tiles, precision):
-    """Each (FB, TM) the kernel is built for, at a ragged batch."""
-    cfg, sc, _, grid = spectral_case("t30", precision, 7)
-    out = ft.launch_analysis(sc, grid, tiles=tiles)
-    (err, _), = smoke.field_errors([out], [sp.grid_to_spec(sc, grid)])
+LAUNCH = {"syn": ft.launch_synthesis, "ana": ft.launch_analysis}
+PLAIN = {"syn": sp.spec_to_grid, "ana": sp.grid_to_spec}
+FUSED = {"syn": ft.fused_spec_to_grid, "ana": ft.fused_grid_to_spec}
+
+
+def launches(direction):
+    return ft.launches_syn if direction == "syn" else ft.launches_ana
+
+
+@pytest.mark.parametrize(
+    "direction,tiles,precision",
+    [("ana", t, p) for t in ft.ANA_BUILT_TILES for p in ("fp64", "fp32")]
+    + [("syn", t, p) for p, size in (("fp64", 8), ("fp32", 4))
+       for t in ft.SYN_BUILT_TILES[size]])
+def test_every_built_tile(smoke, direction, tiles, precision):
+    """Each tile the kernel is built for, at a ragged batch."""
+    cfg, sc, spec, grid = spectral_case("t30", precision, 7)
+    x = spec if direction == "syn" else grid
+    out = LAUNCH[direction](sc, x, tiles=tiles)
+    (err, _), = smoke.field_errors([out], [PLAIN[direction](sc, x)])
     assert err <= smoke.TRANSFORM_BOUND[cfg.rdtype], err
 
 
+@pytest.mark.parametrize("direction", ["syn", "ana"])
 @pytest.mark.parametrize("preset", ["t30", "t42", "t63", "t85", "t170"])
 @pytest.mark.parametrize("itemsize", [4, 8])
-def test_analysis_smem_matches_kernel(smoke, preset, itemsize):
+def test_smem_matches_kernel(smoke, direction, preset, itemsize):
     """The wrapper's shared-memory plan is what the kernel asks for."""
     cfg = from_preset(preset)
-    plan = ft.analysis_plan(cfg.mx, cfg.nx, cfg.il, cfg.ix, itemsize)
     lib = ft._library()
+    if direction == "syn":
+        for batch in (1, 57, 256):
+            plan = ft.synthesis_plan(cfg.mx, cfg.nx, cfg.il, cfg.ix,
+                                     itemsize, batch)
+            assert lib.spectral_synthesis_smem_bytes(
+                int(itemsize == 8), plan.fb, plan.tj, plan.ti, plan.mc,
+                cfg.nx) == plan.smem
+            assert plan.smem <= ft.MAX_SMEM_BYTES
+        return
+    plan = ft.analysis_plan(cfg.mx, cfg.nx, cfg.il, cfg.ix, itemsize)
     assert lib.spectral_analysis_smem_bytes(
         int(itemsize == 8), plan.fb, plan.tm, cfg.il, cfg.ix, plan.jc,
         plan.nc, int(plan.early)) == plan.smem
     assert plan.smem <= ft.MAX_SMEM_BYTES
 
 
+@pytest.mark.parametrize("direction", ["syn", "ana"])
 @pytest.mark.parametrize("case", ["dtype", "mixed", "noncontiguous", "cpu"])
-def test_analysis_refuses_bad_input(smoke, case):
-    cfg, sc, _, grid = spectral_case("t30", "fp32", 4)
+def test_refuses_bad_input(smoke, direction, case):
+    cfg, sc, spec, grid = spectral_case("t30", "fp32", 4)
+    x = spec if direction == "syn" else grid
     if case == "dtype":
-        grid = grid.half()
+        x = x.half()
     elif case == "mixed":
-        grid = grid.double()
+        x = x.double()
     elif case == "noncontiguous":
-        grid = grid.transpose(0, 1).contiguous().transpose(0, 1)
+        x = x.transpose(0, 1).contiguous().transpose(0, 1)
     else:
-        grid = grid.cpu()
+        x = x.cpu()
     ft.reset_launches()
     with pytest.raises(ValueError):
-        ft.launch_analysis(sc, grid)
-    assert ft.launches_ana == 0
+        LAUNCH[direction](sc, x)
+    assert launches(direction) == 0
 
 
-def test_analysis_counts_launches(smoke):
-    _, sc, _, grid = spectral_case("t30", "fp32", 25)
+@pytest.mark.parametrize("direction", ["syn", "ana"])
+def test_counts_launches(smoke, direction):
+    _, sc, spec, grid = spectral_case("t30", "fp32", 25)
+    x = spec if direction == "syn" else grid
     ft.reset_launches()
     for n in range(1, 4):
-        ft.fused_grid_to_spec(sc, grid)
-        assert ft.launches_ana == n
-    ft.fused_grid_to_spec(sc, grid[:0])   # nothing to launch
-    assert ft.launches_ana == 3 and ft.launches_syn == 0
+        FUSED[direction](sc, x)
+        assert launches(direction) == n
+    FUSED[direction](sc, x[:0])   # nothing to launch
+    assert ft.launches_syn + ft.launches_ana == 3
+
+
+@pytest.mark.parametrize("preset", ["t30", "t85", "t170"])
+@pytest.mark.parametrize("precision", ["fp64", "fp32"])
+def test_synthesis_skips_truncated_pairs(smoke, preset, precision):
+    """The synthesis kernel does not read the pairs n >= extent[m] of
+    cpol_inv: large finite values there leave the output bit-equal. The
+    pair (0, trunc + 1) is kept (cpol_dir's extent would drop it), so a
+    value there changes the output, as it does the einsum chain's."""
+    cfg, sc, spec, _ = spectral_case(preset, precision, 5)
+    extent = ft.truncation_extent(sc.cpol_inv).cuda()
+    dropped = torch.arange(cfg.nx, device="cuda") >= extent[:, None]
+    assert int(dropped.sum()) > 0 and not bool(dropped[0, cfg.trunc + 1])
+    zeroed = spec.clone()
+    zeroed[:, dropped] = 0
+    noisy = zeroed.clone()
+    noisy[:, dropped] = 1e6 * torch.randn_like(spec)[:, dropped]
+    base = ft.fused_spec_to_grid(sc, zeroed)
+    assert torch.equal(ft.fused_spec_to_grid(sc, noisy), base)
+    bumped = zeroed.clone()
+    bumped[:, 0, cfg.trunc + 1, 0] += 10.0
+    out = ft.fused_spec_to_grid(sc, bumped)
+    assert not torch.equal(out, base)
+    (err, _), = smoke.field_errors([out], [sp.spec_to_grid(sc, bumped)])
+    assert err <= smoke.TRANSFORM_BOUND[cfg.rdtype], err
 
 
 @pytest.mark.parametrize("sppt_on", [False, True])

@@ -15,8 +15,9 @@ ops/spectral.py) on CPU tensors.
 * Against the JAX einsum path in fp64 at T30 and T85: max |port - jax| /
   max |jax| <= 1e-12.
 * The kernel launchers refuse CPU tensors, and the CPU path launches
-  nothing. The shared-memory plans fit every preset, and the per-m
-  truncation extent the analysis wrapper passes matches cpol_dir. The
+  nothing. The shared-memory plans fit every preset (synthesis at every
+  batch up to 256), and the per-m truncation extents the wrappers pass
+  match their tables (cpol_inv for synthesis, cpol_dir for analysis). The
   kernels themselves are held against the twin on the card in
   tests/test_torch_gpu.py.
 """
@@ -114,24 +115,58 @@ def test_kernel_refuses_cpu_tensors(direction):
 
 @pytest.mark.parametrize("preset", ["t30", "t85", "t170"])
 def test_shared_memory_fits_every_preset(preset):
-    """In fp32 and fp64 at every preset up to T170, synthesis fits the
-    launch without an opt-in, and the analysis plan fits the H100's
-    227 KB per block and the kernel's limits on its chunks."""
+    """In fp32 and fp64 at every preset up to T170, the synthesis plan fits
+    the H100's 227 KB per block (two blocks per SM where it can) and the
+    kernel's limits on its tile, and the analysis plan fits the same and
+    the kernel's limits on its chunks."""
     cfg = tconfig.from_preset(preset)
     dims = (cfg.mx, cfg.nx, cfg.il, cfg.ix)
     for itemsize in (4, 8):
-        assert ft.smem_bytes("syn", *dims, itemsize) <= ft.STATIC_SMEM_BYTES
-        plan = ft.analysis_plan(*dims, itemsize)
-        assert ft.smem_bytes("ana", *dims, itemsize) == plan.smem
+        for batch in (1, 57, 256):
+            plan = ft.synthesis_plan(*dims, itemsize, batch)
+            assert ft.smem_bytes("syn", *dims, itemsize, batch) == plan.smem
+            assert plan.smem <= ft.SMEM_TARGET
+            assert (plan.fb, plan.tj) in ft.SYN_BUILT_TILES[itemsize]
+            assert cfg.il % plan.tj == 0 and cfg.ix % plan.ti == 0
+            assert plan.ti % (16 // itemsize) == 0
+            r = plan.fb * plan.tj
+            assert 0 < ft.syn_ri(itemsize, r, plan.ti) <= ft.syn_ri_max(
+                itemsize, r)
+            assert 1 <= plan.mc <= cfg.mx
+            assert plan.smem == ft.synthesis_smem(plan.fb, plan.tj, plan.ti,
+                                                  plan.mc, cfg.nx, itemsize)
+        ana = ft.analysis_plan(*dims, itemsize)
+        assert ft.smem_bytes("ana", *dims, itemsize, 1) == ana.smem
+        assert ana.smem <= ft.MAX_SMEM_BYTES
+        assert (ana.fb, ana.tm) in ft.ANA_BUILT_TILES
+        assert cfg.il % ana.jc == 0
+        assert ana.fb * ana.jc <= ft.ana_max_rows(ana.tm)
+        assert ana.tm * -(-ana.nc // ft.ANA_RN) <= ft.ANA_THREADS
+        assert ana.smem == ft.analysis_smem(ana.fb, ana.tm, cfg.il, cfg.ix,
+                                            ana.jc, ana.nc, ana.early,
+                                            itemsize)
+        assert not ana.early or ana.nc == cfg.nx
+
+
+@pytest.mark.parametrize("preset", ["t30", "t42", "t63", "t85", "t170"])
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_synthesis_plan_every_batch(preset, itemsize):
+    """At every batch from 1 to 256 the synthesis plan picks a built tile
+    that fits, or raises ValueError (it never does at these presets); a
+    tile the kernel is not built for, or a TI that is not a divisor of ix,
+    raises."""
+    cfg = tconfig.from_preset(preset)
+    dims = (cfg.mx, cfg.nx, cfg.il, cfg.ix)
+    for batch in range(1, 257):
+        plan = ft.synthesis_plan(*dims, itemsize, batch)
+        assert (plan.fb, plan.tj) in ft.SYN_BUILT_TILES[itemsize]
         assert plan.smem <= ft.MAX_SMEM_BYTES
-        assert (plan.fb, plan.tm) in ft.ANA_BUILT_TILES
-        assert cfg.il % plan.jc == 0
-        assert plan.fb * plan.jc <= ft.ana_max_rows(plan.tm)
-        assert plan.tm * -(-plan.nc // ft.ANA_RN) <= ft.ANA_THREADS
-        assert plan.smem == ft.analysis_smem(plan.fb, plan.tm, cfg.il,
-                                             cfg.ix, plan.jc, plan.nc,
-                                             plan.early, itemsize)
-        assert not plan.early or plan.nc == cfg.nx
+    for tiles in [(3, 8)] + [t for t in ft.SYN_BUILT_TILES[4]
+                             if t not in ft.SYN_BUILT_TILES[itemsize]]:
+        with pytest.raises(ValueError, match="not built"):
+            ft.synthesis_plan(*dims, itemsize, 1, tiles=tiles)
+    with pytest.raises(ValueError, match="TI="):
+        ft.synthesis_plan(*dims, itemsize, 1, tiles=(2, 8, cfg.ix - 4))
 
 
 def test_analysis_plan_refuses_what_does_not_fit():
@@ -139,6 +174,8 @@ def test_analysis_plan_refuses_what_does_not_fit():
         ft.analysis_plan(31, 32, 48, 96, 4, tiles=(3, 3))
     with pytest.raises(ValueError, match="shared memory"):
         ft.analysis_plan(31, 32, 48, 8192, 8)
+    with pytest.raises(ValueError, match="shared memory"):
+        ft.synthesis_plan(31, 8192, 48, 96, 8, 1)
 
 
 @pytest.mark.parametrize("preset", ["t30", "t42", "t63", "t85", "t170"])
@@ -158,3 +195,22 @@ def test_truncation_extent_matches_cpol_dir(preset):
     for mm, e in enumerate(extent.tolist()):
         assert not rows[mm, e:].any() and rows[mm, e - 1]
     assert ft.truncation_extent(sc.cpol_dir) is extent
+
+
+@pytest.mark.parametrize("preset", ["t30", "t42", "t63", "t85", "t170"])
+def test_truncation_extent_matches_cpol_inv(preset):
+    """The per-m extent the synthesis wrapper passes comes from cpol_inv:
+    min(nx, trunc + 2 - m), the rows of cpol_inv at and above it zero. It
+    keeps n = trunc + 1 at m = 0, which cpol_dir's extent drops."""
+    cfg = tconfig.from_preset(preset, precision="fp32")
+    sc = tsp.build_spectral(cfg, build_geometry_np(cfg), "cpu")
+    extent = ft.truncation_extent(sc.cpol_inv)
+    m = np.arange(cfg.mx)
+    np.testing.assert_array_equal(
+        extent.numpy(), np.minimum(cfg.nx, cfg.trunc + 2 - m))
+    rows = (sc.cpol_inv != 0).any(dim=-1)              # [mx, nx]
+    for mm, e in enumerate(extent.tolist()):
+        assert not rows[mm, e:].any() and rows[mm, e - 1]
+    ext_dir = ft.truncation_extent(sc.cpol_dir)
+    assert int(extent[0]) == cfg.trunc + 2 == int(ext_dir[0]) + 1
+    assert torch.equal(extent[1:], ext_dir[1:])
