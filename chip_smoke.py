@@ -6,11 +6,15 @@ Phases (each prints one line or more; any failure exits non-zero):
  1. the card's name and power limit (nvidia-smi); TF32 off;
  2. build the CUDA kernels from the sources in this checkout, one nvcc
     process per source, all started together;
- 3. the column-physics kernel against its plain PyTorch chain on the card,
-    on the physics inputs of the booted T30 state and on the same inputs
-    with seeded noise (the rest state does not convect), SW and non-SW
-    variants, fp64 and fp32, then its time against the plain chain's and
-    the bound;
+ 3. the column-physics kernel's registers and spills per instantiation
+    (ptxas); the graph-replay time of one trivial launch (the floor a kernel
+    of a few microseconds is read against); then the column-physics kernel
+    against its plain PyTorch chain on the card, on the physics inputs of
+    the booted state and on the same inputs with seeded noise (the rest
+    state does not convect), SW and non-SW variants, fp64 and fp32, at T30,
+    T85 and T170 (kx=8): the worst field-normalised error against its
+    bound, then the kernel's time (graph replay and eager) against the
+    plain chain's and the bound, and the kernel's share of the bound;
  4. boot + 6 steps in fp64 on the CPU (plain physics) and on CUDA (kernel):
     every prognostic field must agree;
  5. the main path: Model(t30(), device="cuda") in fp32, initialize +
@@ -44,11 +48,10 @@ import time
 import numpy as np
 import torch
 
-from speedy_tpu_torch.bench_transform import (
-    HBM_BYTES_PER_S, PEAK_FLOPS, card_line, time_graph_ms, time_ms)
+from speedy_tpu_torch import bench_physics
+from speedy_tpu_torch.bench_physics import OUTPUT_NAMES, field_errors
+from speedy_tpu_torch.bench_transform import card_line, time_graph_ms, time_ms
 
-FP64_BOUND = 1e-12        # field-normalised, kernel vs plain, fp64
-FP32_BOUND = 1e-4         # field-normalised, kernel vs plain, fp32
 STEP_BOUND = 1e-10        # relative, CPU vs CUDA prognostics after 6 steps
 TRANSFORM_BOUND = {torch.float64: 1e-12, torch.float32: 1e-5}  # field-normalised
 # the batches the T30 step issues (57/34 synthesis, 48/25 analysis) and 256
@@ -60,10 +63,6 @@ TRANSFORM_CASES = (("t30", ("fp64", "fp32"), (1, 7) + tuple(BENCH_BATCHES)),
                    ("t85", ("fp64",), (256,)))
 SPPT_NOISE_SEED = 12345
 N_TIMED = 100
-OUTPUT_NAMES = ["utend", "vtend", "ttend", "qtend", "precnv", "precls",
-                "cbmf", "slrd", "slr", "olr", "ustr", "vstr", "shf", "evap",
-                "slru", "hfluxn", "tsfc", "tskin", "u0", "v0", "t0", "tau2",
-                "stratc", "tt_rsw", "ssrd", "ssr", "tsr"]
 
 
 def ptxas_summary(log: str):
@@ -91,78 +90,6 @@ def ptxas_summary(log: str):
                          f"registers, {spill}")
             name = None
     return lines
-
-
-def field_errors(kernel_outs, plain_outs):
-    """Per output: (max |k - p| / max |p|, max |k - p|)."""
-    errs = []
-    for k, p in zip(kernel_outs, plain_outs):
-        k, p = k.double(), p.double()
-        diff = (k - p).abs().max().item()
-        scale = p.abs().max().item()
-        errs.append((diff / scale if scale > 0 else diff, diff))
-    return errs
-
-
-def worst_columns(kernel_outs, plain_outs, bound, il, ix):
-    """Columns (lat, lon) where some output's error exceeds bound x the
-    output's scale, with the worst field-normalised error there."""
-    bad = {}
-    for i, (k, p) in enumerate(zip(kernel_outs, plain_outs)):
-        scale = p.double().abs().max().item() or 1.0
-        e = ((k.double() - p.double()).abs() / scale).reshape(-1, il * ix)
-        e = e.amax(dim=0)
-        for c in torch.nonzero(e > bound).flatten().tolist():
-            bad[c] = max(bad.get(c, 0.0), e[c].item())
-    return sorted(((v, divmod(c, ix), ) for c, v in bad.items()),
-                  reverse=True)[:10]
-
-
-def physics_case(model, compute_sw):
-    """Kernel inputs of the physics call at the booted state."""
-    from speedy_tpu_torch.models import tendencies as tend
-    from speedy_tpu_torch.models.geopotential import get_geopotential
-    from speedy_tpu_torch.models.physics import fused
-    from speedy_tpu_torch.utils import calendar as cal
-    start = cal.Datetime(1982, 1, 1)
-    state = model.initialize(start)
-    daily = model.daily_forcing(state, start, start)
-    mc, cfg = model.mc, model.cfg
-    phi0 = get_geopotential(mc.dyn.gc, state.prog.t[0], mc.dyn.phis)
-    pg = tend.grid_dynamics_tendencies(cfg, mc.dyn, mc.ic_2dt, state.prog,
-                                       1, phi0)[1]
-    ins = fused.kernel_inputs(cfg, model.pp, compute_sw, daily, state.surf,
-                              state.rad, pg)
-    return ins, model.pp.kernel_block
-
-
-def perturb(ins, seed=0):
-    """The same inputs with seeded noise on the winds and temperature and
-    extra moisture, so that convection and clouds are active (the booted
-    rest state does not convect)."""
-    rng = np.random.default_rng(seed)
-    shape = tuple(ins[2].shape)
-    dev = lambda a: torch.as_tensor(a, dtype=ins[2].dtype,
-                                    device=ins[2].device)
-    out = list(ins)
-    # the winds are drawn at every level, as the model's fields would be,
-    # and enter at the lowest
-    out[0] = ins[0] + dev(rng.normal(0.0, 5.0, shape)[-1])
-    out[1] = ins[1] + dev(rng.normal(0.0, 5.0, shape)[-1])
-    out[2] = ins[2] + dev(rng.normal(0.0, 1.5, shape))
-    out[3] = ins[3] * dev(1.0 + rng.uniform(0.0, 0.6, shape))
-    return out
-
-
-def bound_ms(ins, outs, dtype, kx, ncol):
-    """Least time for the call: bytes (inputs read once, outputs written
-    once; the winds are passed at the lowest level only, the one the chain
-    reads) over HBM bandwidth vs operations over the peak rate. Operations
-    are a lower estimate of 100 per level per column."""
-    nbytes = sum(x.numel() * x.element_size() for x in ins + outs)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 100.0 * kx * ncol / PEAK_FLOPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def bench_path(reps):
@@ -388,74 +315,58 @@ def main() -> int:
     from speedy_tpu_torch.utils.synthetic_bc import synthetic_boundaries
 
     # [2] build, one nvcc per source, all at once
-    libs = {"column_physics": fused.SOURCES,
-            "spectral_transforms": ft.SOURCES}
+    libs = {"column_physics": (fused.SOURCES, fused.NVCC_FLAGS),
+            "spectral_transforms": (ft.SOURCES, ())}
     t0 = time.perf_counter()
     native.build_all(libs)
     print(f"[2] built {', '.join(libs)} in {time.perf_counter() - t0:.1f} s "
           "(nvcc " + ", ".join(f"{n} {native.build_seconds.get(n, 0.0):.1f} s"
                                for n in libs) + ")")
-    for name in libs:
-        for line in ptxas_summary(native.build_log.get(name, "")):
-            print("    ptxas:", line)
+    for line in ptxas_summary(native.build_log.get("spectral_transforms",
+                                                    "")):
+        print("    ptxas:", line)
 
     bc = synthetic_boundaries(0)
-    models = {p: Model(t30(precision=p), device="cuda", bc_arrays=bc)
-              for p in ("fp64", "fp32")}
 
-    # [3] kernel vs plain on the card
+    # [3] kernel vs plain on the card at bench_physics.K1_PRESETS (kx=8)
+    for line in ptxas_summary(native.build_log.get("column_physics", "")):
+        print("[3] ptxas:", line)
+    print(f"[3] one trivial launch (1-element add), graph replay: "
+          f"{bench_physics.floor_ms(N_TIMED) * 1e3:.3f} us/call")
     rows = {}
     ok = True
-    for prec, model in models.items():
-        cfg = model.cfg
-        dtype = cfg.rdtype
-        bound = FP64_BOUND if prec == "fp64" else FP32_BOUND
-        for sw in (True, False):
-            variant = "sw" if sw else "nosw"
-            booted, block = physics_case(model, sw)
-            for case, ins in (("booted", booted), ("perturbed",
-                                                   perturb(booted))):
-                kout = fused.launch_kernel(cfg, sw, ins, block)
-                pout = fused.plain_outputs(cfg, model.pp, sw, ins)
-                torch.cuda.synchronize()
-                errs = field_errors(kout, pout)
-                worst = max(e[0] for e in errs)
-                finite = all(bool(torch.isfinite(k).all()) for k in kout)
-                per = " ".join(f"{n}={e[0]:.1e}"
-                               for n, e in zip(OUTPUT_NAMES, errs))
-                n_conv = int((pout[6] > 0).sum())
-                print(f"[3] {prec} {variant} {case} ({n_conv} convecting "
-                      f"columns): worst {worst:.3e} (bound {bound:.0e}) "
-                      f"finite={finite} | {per}")
-                if worst > bound or not finite:
-                    ok = False
-                    for v, (j, i) in worst_columns(kout, pout, bound,
-                                                   cfg.il, cfg.ix):
-                        print(f"    column lat={j} lon={i}: {v:.3e}")
-            # timed on the perturbed (convecting) inputs
-            ms = time_graph_ms(lambda: fused.launch_kernel(cfg, sw, ins,
-                                                           block), N_TIMED)
-            ms_eager = time_ms(lambda: fused.launch_kernel(cfg, sw, ins,
-                                                           block), N_TIMED)
-            plain_ms = time_ms(
-                lambda: fused.plain_outputs(cfg, model.pp, sw, ins), N_TIMED)
-            b_ms, b_by = bound_ms(ins, kout, dtype, cfg.kx, cfg.il * cfg.ix)
-            print(f"[3] {prec} {variant}: kernel {ms:.4f} ms/call (graph), "
-                  f"{ms_eager:.4f} ms/call (eager), plain {plain_ms:.4f} "
-                  f"ms/call, bound {b_ms:.5f} ms ({b_by})")
-            rows[(prec, variant)] = dict(
-                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                max_abs_err=max(e[1] for e in errs))
+    for rec in bench_physics.run():
+        preset, prec, variant = rec["preset"], rec["precision"], rec["variant"]
+        for r in rec["checks"]:
+            per = "" if preset != "t30" else " | " + " ".join(
+                f"{n}={e[0]:.1e}" for n, e in zip(OUTPUT_NAMES, r["errors"]))
+            print(f"[3] {preset} {prec} {variant} {r['case']} "
+                  f"({r['convecting']} convecting columns): worst "
+                  f"{r['worst']:.3e} (bound {rec['bound']:.0e}) "
+                  f"finite={r['finite']}{per}")
+            for v, name, (j, i) in r["columns"]:
+                print(f"    column lat={j} lon={i}: {name} {v:.3e}")
+        ok &= bench_physics.passed(rec)
+        print(f"[3] {preset} {prec} {variant}: kernel "
+              f"{rec['kernel_graph_us']:.3f} us/call (graph), "
+              f"{rec['kernel_eager_us']:.1f} us/call (eager), plain "
+              f"{rec['plain_us'] * 1e-3:.3f} ms/call, bound "
+              f"{rec['bound_us']:.3f} us ({rec['bound_by']}), share of the "
+              f"bound {rec['share']:.1%}")
+        rows[(preset, prec, variant)] = dict(
+            ms=rec["kernel_graph_us"] * 1e-3, plain_ms=rec["plain_us"] * 1e-3,
+            bound_ms=rec["bound_us"] * 1e-3, bound_by=rec["bound_by"],
+            max_abs_err=rec["max_abs_err"])
     if not ok:
         print("[3] FAILED: kernel disagrees with the plain chain")
         return 1
 
     # [4] CPU vs CUDA, boot + 6 steps, fp64
     start = cal.Datetime(1982, 1, 1)
-    cpu = Model(t30(precision="fp64"), device="cpu", bc_arrays=bc)
     worst = {}
     states = {}
-    for name, m in (("cpu", cpu), ("cuda", models["fp64"])):
+    for name in ("cpu", "cuda"):
+        m = Model(t30(precision="fp64"), device=name, bc_arrays=bc)
         s = m.initialize(start)
         daily = m.daily_forcing(s, start, start)
         for i in range(6):
@@ -513,7 +424,7 @@ def main() -> int:
     kernels = []
     for variant, launches in (("sw", n_launch_sw),
                               ("nosw", n_launch - n_launch_sw)):
-        r = rows[("fp32", variant)]
+        r = rows[("t30", "fp32", variant)]
         kernels.append(dict(
             name=f"column_physics_{variant}", route="cuda",
             source="speedy_tpu_torch/csrc/column_physics.cu",

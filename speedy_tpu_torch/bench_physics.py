@@ -1,0 +1,229 @@
+"""The column-physics kernel against its plain PyTorch chain on the card.
+
+    python -m speedy_tpu_torch.bench_physics
+
+For each preset of K1_PRESETS (kx=8) and each type it builds the model on the card from the
+stand-in boundary set, takes the physics inputs of the booted state and
+the same inputs with seeded noise (the booted rest state does not
+convect), and for the SW and the non-SW variant prints one JSON line: the
+worst field-normalised error of the kernel against the plain chain over
+both input sets, whether every output is finite, the kernel's time per
+call as a CUDA-graph replay of REPS calls and over REPS eager calls, the
+plain chain's eager time, the least time the card could take for the call
+(bound) and the kernel's share of it. It first prints the graph-replay time
+of one trivial launch (a one-element in-place add), the floor against which
+a kernel of a few microseconds is read, and the card's name and power
+limit. Needs a CUDA device and refuses to run without one.
+
+The script reads only what every version of the kernel's wrapper has
+(``fused.kernel_inputs``, ``launch_kernel``, ``plain_outputs``), so run as a
+file with another checkout's package first on ``PYTHONPATH`` it times that
+checkout's kernel.
+"""
+from __future__ import annotations
+
+import json
+import sys
+
+import numpy as np
+import torch
+
+from speedy_tpu_torch.bench_transform import (
+    HBM_BYTES_PER_S, PEAK_FLOPS, card_line, time_graph_ms, time_ms)
+
+FP64_BOUND = 1e-12        # field-normalised, kernel vs plain, fp64
+FP32_BOUND = 1e-4         # field-normalised, kernel vs plain, fp32
+K1_PRESETS = ("t30", "t85", "t170")
+PRECISIONS = ("fp64", "fp32")
+REPS = 100
+PLAIN_REPS = 20           # the plain chain is host-bound: fewer calls do
+OUTPUT_NAMES = ["utend", "vtend", "ttend", "qtend", "precnv", "precls",
+                "cbmf", "slrd", "slr", "olr", "ustr", "vstr", "shf", "evap",
+                "slru", "hfluxn", "tsfc", "tskin", "u0", "v0", "t0", "tau2",
+                "stratc", "tt_rsw", "ssrd", "ssr", "tsr"]
+
+
+def error_bound(dtype) -> float:
+    return FP64_BOUND if dtype == torch.float64 else FP32_BOUND
+
+
+def physics_case(model, compute_sw):
+    """Kernel inputs of the physics call at the booted state, and the
+    model's argument block."""
+    from speedy_tpu_torch.models import tendencies as tend
+    from speedy_tpu_torch.models.geopotential import get_geopotential
+    from speedy_tpu_torch.models.physics import fused
+    from speedy_tpu_torch.utils import calendar as cal
+    start = cal.Datetime(1982, 1, 1)
+    state = model.initialize(start)
+    daily = model.daily_forcing(state, start, start)
+    mc, cfg = model.mc, model.cfg
+    phi0 = get_geopotential(mc.dyn.gc, state.prog.t[0], mc.dyn.phis)
+    pg = tend.grid_dynamics_tendencies(cfg, mc.dyn, mc.ic_2dt, state.prog,
+                                       1, phi0)[1]
+    ins = fused.kernel_inputs(cfg, model.pp, compute_sw, daily, state.surf,
+                              state.rad, pg)
+    return ins, model.pp.kernel_block
+
+
+def perturb(ins, seed=0):
+    """The same inputs with seeded noise on the winds and temperature and
+    extra moisture, so that convection and clouds are active (the booted
+    rest state does not convect)."""
+    rng = np.random.default_rng(seed)
+    shape = tuple(ins[2].shape)
+    dev = lambda a: torch.as_tensor(a, dtype=ins[2].dtype,
+                                    device=ins[2].device)
+    out = list(ins)
+    # the winds are drawn at every level, as the model's fields would be,
+    # and enter at the lowest
+    out[0] = ins[0] + dev(rng.normal(0.0, 5.0, shape)[-1])
+    out[1] = ins[1] + dev(rng.normal(0.0, 5.0, shape)[-1])
+    out[2] = ins[2] + dev(rng.normal(0.0, 1.5, shape))
+    out[3] = ins[3] * dev(1.0 + rng.uniform(0.0, 0.6, shape))
+    return out
+
+
+def field_errors(kernel_outs, plain_outs):
+    """Per output: (max |k - p| / max |p|, max |k - p|)."""
+    errs = []
+    for k, p in zip(kernel_outs, plain_outs):
+        k, p = k.double(), p.double()
+        diff = (k - p).abs().max().item()
+        scale = p.abs().max().item()
+        errs.append((diff / scale if scale > 0 else diff, diff))
+    return errs
+
+
+def worst_columns(kernel_outs, plain_outs, bound, il, ix):
+    """Columns (lat, lon) where some output's error exceeds bound x the
+    output's scale, with the worst field-normalised error there and the
+    output it is in."""
+    bad = {}
+    for name, k, p in zip(OUTPUT_NAMES, kernel_outs, plain_outs):
+        scale = p.double().abs().max().item() or 1.0
+        e = ((k.double() - p.double()).abs() / scale).reshape(-1, il * ix)
+        e = e.amax(dim=0)
+        for c in torch.nonzero(e > bound).flatten().tolist():
+            if e[c].item() > bad.get(c, (0.0, ""))[0]:
+                bad[c] = (e[c].item(), name)
+    return sorted(((v, name, divmod(c, ix)) for c, (v, name) in bad.items()),
+                  reverse=True)[:10]
+
+
+def bound_ms(ins, outs, dtype, kx, ncol):
+    """Least time for the call: bytes (inputs read once, outputs written
+    once; the winds are passed at the lowest level only, the one the chain
+    reads) over HBM bandwidth vs operations over the peak rate. Operations
+    are a lower estimate of 100 per level per column."""
+    nbytes = sum(x.numel() * x.element_size() for x in ins + outs)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 100.0 * kx * ncol / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def floor_ms(reps: int) -> float:
+    """Graph-replay time per call of a one-element in-place add."""
+    x = torch.zeros(1, device="cuda")
+    return time_graph_ms(lambda: x.add_(1.0), reps)
+
+
+def check_case(model, compute_sw):
+    """The kernel against the plain chain on the booted and the perturbed
+    inputs. Returns (perturbed inputs, argument block, rows): one row per
+    input set with the worst field-normalised error, the largest absolute
+    error, the per-output errors, whether every output is finite and the
+    number of convecting columns."""
+    from speedy_tpu_torch.models.physics import fused
+    cfg = model.cfg
+    booted, block = physics_case(model, compute_sw)
+    rows = []
+    for case, ins in (("booted", booted), ("perturbed", perturb(booted))):
+        kout = fused.launch_kernel(cfg, compute_sw, ins, block)
+        pout = fused.plain_outputs(cfg, model.pp, compute_sw, ins)
+        torch.cuda.synchronize()
+        errs = field_errors(kout, pout)
+        bound = error_bound(cfg.rdtype)
+        over = {n: e[0] for n, e in zip(OUTPUT_NAMES, errs) if e[0] > bound}
+        rows.append(dict(over=over, columns=worst_columns(
+            kout, pout, bound, cfg.il, cfg.ix) if over else [],
+            case=case, worst=max(e[0] for e in errs),
+            max_abs_err=max(e[1] for e in errs), errors=errs,
+            finite=all(bool(torch.isfinite(k).all()) for k in kout),
+            convecting=int((pout[6] > 0).sum())))
+    return ins, block, rows
+
+
+def time_case(model, compute_sw, ins, block, reps):
+    """(graph ms, eager ms, plain ms, bound ms, bound by) of one call."""
+    from speedy_tpu_torch.models.physics import fused
+    cfg = model.cfg
+    call = lambda: fused.launch_kernel(cfg, compute_sw, ins, block)
+    ms = time_graph_ms(call, reps)
+    eager_ms = time_ms(call, reps)
+    plain_ms = time_ms(
+        lambda: fused.plain_outputs(cfg, model.pp, compute_sw, ins),
+        min(reps, PLAIN_REPS))
+    b_ms, b_by = bound_ms(ins, call(), cfg.rdtype, cfg.kx, cfg.il * cfg.ix)
+    return ms, eager_ms, plain_ms, b_ms, b_by
+
+
+def run():
+    """One record per (preset, precision, variant) of K1_PRESETS x
+    PRECISIONS x (SW, non-SW), with the check of each input set
+    (``checks``, check_case's rows)."""
+    from speedy_tpu_torch.config import from_preset
+    from speedy_tpu_torch.models.model import Model
+    from speedy_tpu_torch.utils.synthetic_bc import synthetic_boundaries
+    bc = synthetic_boundaries(0)
+    records = []
+    for preset in K1_PRESETS:
+        for prec in PRECISIONS:
+            model = Model(from_preset(preset, precision=prec),
+                          device="cuda", bc_arrays=bc)
+            for sw in (True, False):
+                ins, block, rows = check_case(model, sw)
+                ms, eager_ms, plain_ms, b_ms, b_by = time_case(
+                    model, sw, ins, block, REPS)
+                records.append(dict(
+                    preset=preset, precision=prec, kx=model.cfg.kx,
+                    variant="sw" if sw else "nosw",
+                    worst=max(r["worst"] for r in rows),
+                    bound=error_bound(model.cfg.rdtype),
+                    max_abs_err=max(r["max_abs_err"] for r in rows),
+                    finite=all(r["finite"] for r in rows),
+                    convecting=rows[1]["convecting"],
+                    over={r["case"]: r["over"] for r in rows if r["over"]},
+                    columns={r["case"]: r["columns"] for r in rows
+                             if r["columns"]},
+                    kernel_graph_us=ms * 1e3, kernel_eager_us=eager_ms * 1e3,
+                    plain_us=plain_ms * 1e3, bound_us=b_ms * 1e3,
+                    bound_by=b_by, share=b_ms / ms, checks=rows))
+    return records
+
+
+def passed(rec) -> bool:
+    return rec["worst"] <= rec["bound"] and rec["finite"]
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("bench_physics: CUDA is not available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from speedy_tpu_torch.utils import native
+    print(json.dumps(dict(card=card_line(),
+                          trivial_graph_us=floor_ms(REPS) * 1e3)))
+    ok = True
+    for rec in run():
+        ok &= passed(rec)
+        print(json.dumps({k: v for k, v in rec.items() if k != "checks"}))
+    # the kernel was built at its first launch
+    for line in native.build_log.get("column_physics", "").splitlines():
+        if "Compiling" in line or "spill" in line or "registers" in line:
+            print("ptxas:", line.strip())
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

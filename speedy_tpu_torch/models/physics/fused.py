@@ -1,5 +1,9 @@
 """The column-physics kernel: the whole grid-point physics chain as one
-CUDA kernel, one thread per (lat, lon) column (csrc/column_physics.cu).
+CUDA kernel (csrc/column_physics.cu), a block of COLS (lat, lon) columns x
+LANES lanes: a team of lanes per column does the work local to a level
+(one lane per level), one walker lane per column, 32 to a warp, the level
+sweeps and column scalars in the plain chain's order, all staged through
+shared memory (``block_plan``).
 
 It replaces the JAX package's Pallas kernel
 ``speedy_tpu/models/physics/fused.py::fused_grid_physics``.
@@ -11,6 +15,8 @@ counts kernel launches (``launches_sw`` those of the shortwave variant).
 from __future__ import annotations
 
 import ctypes
+import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -21,10 +27,17 @@ from . import vertical_diffusion as vdif_mod
 from .surface import SurfaceFluxes
 
 SOURCES = ("column_physics.cu",)
+# each multiply and add rounded on its own, as in the plain chain's separate
+# PyTorch operations: with contracted FMAs an fp32 threshold test can fall
+# the other way in a column (one of T170's 131,072 on the perturbed inputs,
+# its qtend off by 2.5% of the field's largest value)
+NVCC_FLAGS = ("-fmad=false",)
 N_IN_SW, N_IN = 23, 27      # kernel inputs on SW / non-SW steps
 N_OUT, N_OUT_SW = 21, 27    # kernel outputs on non-SW / SW steps
 MAXL = 9                    # slots per level table in the argument block
 N_TABLES, N_SCALARS = 15, 16
+COLS, LANES = 32, 8         # a block: columns x lanes per column (kx <= 8)
+THREADS = COLS * LANES
 
 launches = 0
 launches_sw = 0
@@ -64,6 +77,36 @@ def output_shapes(kx: int, il: int, ix: int, compute_sw: bool) -> list:
         shapes += [(4, kx, il, ix), (2, il, ix), (kx, il, ix),
                    (il, ix), (il, ix), (il, ix)]  # tau2 stratc tt_rsw ssrd ssr tsr
     return shapes
+
+
+def input_shapes(kx: int, il: int, ix: int, compute_sw: bool) -> list:
+    shapes = ([(il, ix)] * 2 + [(kx, il, ix)] * 3 + [(il, ix)] * 11
+              + [(il,)] * 6 + [(1,)])
+    if not compute_sw:
+        shapes += [(4, kx, il, ix), (2, il, ix), (kx, il, ix), (il, ix)]
+    return shapes
+
+
+class BlockPlan(NamedTuple):
+    cols: int      # columns per block
+    threads: int   # COLS x LANES
+    blocks: int    # blocks in the launch
+    smem: int      # dynamic shared memory per block, bytes
+
+
+def block_plan(kx: int, il: int, ix: int, itemsize: int,
+               compute_sw: bool) -> BlockPlan:
+    """The kernel's launch (``Layout`` in csrc/column_physics.cu): one
+    shared-memory row of COLS values plus 16 bytes per staged input row
+    (a level of an [kx, il, ix] field, or an [il, ix] field), per output
+    row and per work row (10 per level, 13 on SW steps; 8 per column; the
+    6 [il] fields and ablco2 gathered at each column; one per level
+    table)."""
+    n_in = 13 + 3 * kx if compute_sw else 16 + 8 * kx
+    n_out = 9 * kx + 33 if compute_sw else 4 * kx + 28
+    n_work = (13 if compute_sw else 10) * kx + 8 + 7 + N_TABLES
+    return BlockPlan(COLS, THREADS, -(-il * ix // COLS),
+                     (n_in + n_out + n_work) * (COLS * itemsize + 16))
 
 
 def _unflatten(outs, compute_sw):
@@ -124,71 +167,103 @@ def argument_block(pp) -> np.ndarray:
     return np.concatenate([tab.ravel(), scal])
 
 
-_launch_fn = None
+_lib = None
 
 
-def _launcher():
-    """The C entry point of the kernel library, built and bound at first
-    use."""
-    global _launch_fn
-    if _launch_fn is None:
+def library() -> ctypes.CDLL:
+    """The kernel library, built and bound at first use."""
+    global _lib
+    if _lib is None:
         from ...utils import native
-        fn = native.load("column_physics", SOURCES).column_physics_launch
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-        _launch_fn = fn
-    return _launch_fn
+        lib = native.load("column_physics", SOURCES, NVCC_FLAGS)
+        lib.column_physics_launch.restype = ctypes.c_int
+        lib.column_physics_launch.argtypes = (
+            [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4)
+        lib.column_physics_layout.restype = ctypes.c_int
+        lib.column_physics_layout.argtypes = (
+            [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 4)
+        _lib = lib
+    return _lib
 
 
 def _check(x: torch.Tensor, shape, dtype, device, i: int) -> None:
     if x.device != device or x.dtype != dtype:
         raise ValueError(f"input {i}: {x.dtype} on {x.device}, expected "
                          f"{dtype} on {device}")
-    if x.numel() != int(np.prod(shape)) or not x.is_contiguous():
+    if x.numel() != math.prod(shape) or not x.is_contiguous():
         raise ValueError(f"input {i}: shape {tuple(x.shape)} (contiguous="
                          f"{x.is_contiguous()}), expected {shape}")
+
+
+class _Signature(NamedTuple):
+    """What a launch of one (kx, il, ix, type, variant) needs, built once:
+    the inputs' shapes and sizes, and the outputs' shapes, sizes and places
+    in one buffer."""
+    in_shapes: list
+    in_numels: tuple
+    out_shapes: list
+    out_numels: list
+    out_views: list            # (shape, stride, offset) in the buffer
+    out_offsets: np.ndarray    # bytes, uint64
+
+
+_signatures = {}
+
+
+def _signature(kx, il, ix, dtype, compute_sw) -> _Signature:
+    key = (kx, il, ix, dtype, compute_sw)
+    sig = _signatures.get(key)
+    if sig is None:
+        if dtype not in (torch.float32, torch.float64):
+            raise ValueError(f"unsupported dtype {dtype}")
+        if kx not in (5, 7, 8):
+            raise ValueError(f"kx={kx} is not built (5, 7, 8)")
+        in_shapes = input_shapes(kx, il, ix, compute_sw)
+        out_shapes = output_shapes(kx, il, ix, compute_sw)
+        out_numels = [math.prod(s) for s in out_shapes]
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        offsets = np.cumsum([0] + out_numels[:-1], dtype=np.uint64)
+        views = [(s, torch.empty(s, device="meta").stride(), int(o))
+                 for s, o in zip(out_shapes, offsets)]
+        sig = _signatures[key] = _Signature(
+            in_shapes, tuple(math.prod(s) for s in in_shapes), out_shapes,
+            out_numels, views, offsets * itemsize)
+    return sig
 
 
 def launch_kernel(cfg, compute_sw: bool, ins: list, block: np.ndarray):
     """Launch the kernel on CUDA tensors ``ins`` (kernel_inputs order)
     with the float64 argument block, on the tensors' device and its
-    current stream; returns the flat list of outputs."""
+    current stream; returns the flat list of outputs, views of one
+    buffer. An output that outlives the step keeps the whole buffer
+    alive: the radiation state a SW step carries (tau2, stratc, tt_rsw,
+    ssrd) holds all of that step's outputs until the next SW step, 105
+    rows of il x ix values at kx=8 (110 MB at T170 in fp64)."""
     global launches, launches_sw
-    kx, il, ix = cfg.kx, cfg.il, cfg.ix
     dtype, device = ins[2].dtype, ins[2].device
     if device.type != "cuda":
         raise ValueError(f"the column-physics kernel needs CUDA tensors, "
                          f"got {device}")
-    if dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"unsupported dtype {dtype}")
-    if kx not in (5, 7, 8):
-        raise ValueError(f"kx={kx} is not built (5, 7, 8)")
-    n_in = N_IN_SW if compute_sw else N_IN
-    if len(ins) != n_in:
-        raise ValueError(f"{len(ins)} inputs, expected {n_in}")
-    in_shapes = ([(il, ix)] * 2 + [(kx, il, ix)] * 3 + [(il, ix)] * 11
-                 + [(il,)] * 6 + [(1,)]
-                 + [(4, kx, il, ix), (2, il, ix), (kx, il, ix), (il, ix)])
-    for i, (x, s) in enumerate(zip(ins, in_shapes)):
-        _check(x, s, dtype, device, i)
-    outs = [torch.empty(s, dtype=dtype, device=device)
-            for s in output_shapes(kx, il, ix, compute_sw)]
-
+    sig = _signature(cfg.kx, cfg.il, cfg.ix, dtype, compute_sw)
+    if len(ins) != len(sig.in_shapes):
+        raise ValueError(f"{len(ins)} inputs, expected {len(sig.in_shapes)}")
+    for i, (x, n) in enumerate(zip(ins, sig.in_numels)):
+        if (x.dtype != dtype or x.device != device or x.numel() != n
+                or not x.is_contiguous()):
+            _check(x, sig.in_shapes[i], dtype, device, i)
     if block.dtype != np.float64 or not block.flags.c_contiguous:
         raise ValueError("the argument block must be contiguous float64")
 
-    fn = _launcher()
-    in_ptrs = (ctypes.c_void_p * N_IN)(*[x.data_ptr() for x in ins])
-    out_ptrs = (ctypes.c_void_p * N_OUT_SW)(*[o.data_ptr() for o in outs])
+    buf = torch.empty(sum(sig.out_numels), dtype=dtype, device=device)
+    outs = [torch.as_strided(buf, *v) for v in sig.out_views]
+    in_ptrs = np.array([x.data_ptr() for x in ins], np.uint64)
+    out_ptrs = sig.out_offsets + np.uint64(buf.data_ptr())
+    fn = library().column_physics_launch
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(1 if dtype == torch.float64 else 0, kx, int(compute_sw), il,
-                 ix, ctypes.cast(in_ptrs, ctypes.c_void_p),
-                 ctypes.cast(out_ptrs, ctypes.c_void_p),
-                 block.ctypes.data_as(ctypes.c_void_p),
-                 ctypes.c_void_p(stream))
+        err = fn(int(dtype == torch.float64), cfg.kx, int(compute_sw),
+                 cfg.il, cfg.ix, in_ptrs.ctypes.data, out_ptrs.ctypes.data,
+                 block.ctypes.data,
+                 torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"column_physics kernel launch failed: CUDA "
                            f"error {err}")

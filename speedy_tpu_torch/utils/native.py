@@ -1,10 +1,11 @@
 """Build and load the package's CUDA sources.
 
 Each library is compiled once with ``nvcc`` into a shared object with a
-plain C interface and loaded with ``ctypes``. The build happens at first
-use, into ``speedy_tpu_torch/csrc/build/`` (git-ignored), under a name
-keyed by a hash of the sources and flags, so an edited source is rebuilt
-and an unchanged one is reused within a checkout.
+plain C interface and loaded with ``ctypes``, with NVCC_FLAGS and the
+library's own flags. The build happens at first use, into
+``speedy_tpu_torch/csrc/build/`` (git-ignored), under a name keyed by a
+hash of the sources and flags, so an edited source is rebuilt and an
+unchanged one is reused within a checkout.
 """
 from __future__ import annotations
 
@@ -34,23 +35,23 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME)")
 
 
-def _library_path(name: str, sources) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _library_path(name: str, sources, flags) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + list(flags)).encode())
     for src in sources:
         with open(os.path.join(CSRC, src), "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
-def _start(name: str, sources):
+def _start(name: str, sources, flags):
     """Start nvcc for ``sources`` unless the library exists; returns (path,
     process or None, temporary path, start time)."""
-    path = _library_path(name, sources)
+    path = _library_path(name, sources, flags)
     if os.path.exists(path):
         return path, None, None, 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+    cmd = [nvcc_path(), *NVCC_FLAGS, *flags, "-o", tmp,
            *[os.path.join(CSRC, s) for s in sources]]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
@@ -70,16 +71,18 @@ def _finish(name: str, started) -> str:
     return path
 
 
-def build(name: str, sources) -> str:
-    """Compile ``sources`` (file names under csrc/) into a shared library
-    unless it exists already; returns its path."""
-    return _finish(name, _start(name, sources))
+def build(name: str, sources, flags=()) -> str:
+    """Compile ``sources`` (file names under csrc/) with ``flags`` added to
+    NVCC_FLAGS into a shared library unless it exists already; returns its
+    path."""
+    return _finish(name, _start(name, sources, flags))
 
 
 def build_all(libraries: dict) -> None:
-    """Build every library of ``{name: sources}``, one nvcc process for
-    each, all started together."""
-    started = {name: _start(name, srcs) for name, srcs in libraries.items()}
+    """Build every library of ``{name: (sources, flags)}``, one nvcc
+    process for each, all started together."""
+    started = {name: _start(name, srcs, flags)
+               for name, (srcs, flags) in libraries.items()}
     errors = []
     for name, st in started.items():
         try:
@@ -90,8 +93,8 @@ def build_all(libraries: dict) -> None:
         raise RuntimeError("\n".join(errors))
 
 
-def load(name: str, sources) -> ctypes.CDLL:
+def load(name: str, sources, flags=()) -> ctypes.CDLL:
     """The loaded library ``name``, built first if needed."""
     if name not in _loaded:
-        _loaded[name] = ctypes.CDLL(build(name, sources))
+        _loaded[name] = ctypes.CDLL(build(name, sources, flags))
     return _loaded[name]

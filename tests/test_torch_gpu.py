@@ -6,7 +6,10 @@ runs where JAX is absent:
 
 The column-physics kernel is held against its plain PyTorch chain on the
 same CUDA tensors (field-normalised error, fp64 <= 1e-12, fp32 <= 1e-4)
-for every built level count, the spectral-transform kernels against their
+for every built level count at T30 and at kx=8 on the T63, T85 and T170
+grids, its launch (columns, threads, blocks, shared memory) against
+``fused.block_plan`` at every preset, and its refusal of bad inputs; the
+spectral-transform kernels against their
 einsum chain (fp64 <= 1e-12, fp32 <= 1e-5) at the step's, ragged and large
 batches at T30 and T85 and at every preset up to T170 (both kernels'
 largest shared-memory case is T170 fp64) and at every tile they are built
@@ -16,6 +19,7 @@ against the CPU model after
 boot + 6 fp64 steps (<= 1e-10), with SPPT off and on (the same innovations
 from a numpy seed).
 """
+import ctypes
 import os
 import sys
 
@@ -23,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from speedy_tpu_torch import bench_physics as bp
 from speedy_tpu_torch.config import from_preset, t30
 from speedy_tpu_torch.geometry import build_geometry_np
 from speedy_tpu_torch.models.model import Model
@@ -52,19 +57,64 @@ def bc():
     return synthetic_boundaries(0)
 
 
-@pytest.mark.parametrize("kx", [5, 7, 8])
+K1_GRIDS = [("t30", 5), ("t30", 7), ("t30", 8), ("t63", 8), ("t85", 8),
+            ("t170", 8)]
+
+
+@pytest.mark.parametrize("preset,kx", K1_GRIDS)
 @pytest.mark.parametrize("precision", ["fp64", "fp32"])
-def test_kernel_matches_plain_chain(smoke, bc, kx, precision):
-    bound = smoke.FP64_BOUND if precision == "fp64" else smoke.FP32_BOUND
-    m = Model(t30(precision=precision, kx=kx), device="cuda", bc_arrays=bc)
+def test_kernel_matches_plain_chain(smoke, bc, preset, kx, precision):
+    bound = bp.FP64_BOUND if precision == "fp64" else bp.FP32_BOUND
+    m = Model(from_preset(preset, precision=precision, kx=kx), device="cuda",
+              bc_arrays=bc)
     for sw in (True, False):
-        booted, block = smoke.physics_case(m, sw)
-        for ins in (booted, smoke.perturb(booted)):
+        booted, block = bp.physics_case(m, sw)
+        for ins in (booted, bp.perturb(booted)):
             kout = fused.launch_kernel(m.cfg, sw, ins, block)
             pout = fused.plain_outputs(m.cfg, m.pp, sw, ins)
-            errs = smoke.field_errors(kout, pout)
-            for name, (e, _) in zip(smoke.OUTPUT_NAMES, errs):
+            errs = bp.field_errors(kout, pout)
+            for name, (e, _) in zip(bp.OUTPUT_NAMES, errs):
                 assert e <= bound, (sw, name, e)
+
+
+@pytest.mark.parametrize("preset", ["t30", "t42", "t63", "t85", "t170"])
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_k1_layout_matches_kernel(smoke, preset, itemsize):
+    """The wrapper's plan is the launch the kernel makes, for every built
+    kx and both variants."""
+    cfg = from_preset(preset)
+    layout = fused.library().column_physics_layout
+    for kx in (5, 7, 8):
+        for sw in (True, False):
+            got = [ctypes.c_int() for _ in range(4)]
+            assert layout(int(itemsize == 8), kx, int(sw), cfg.il, cfg.ix,
+                          *map(ctypes.byref, got)) == 0
+            assert tuple(v.value for v in got) == fused.block_plan(
+                kx, cfg.il, cfg.ix, itemsize, sw)
+
+
+@pytest.mark.parametrize("case", ["dtype", "mixed", "shape",
+                                  "noncontiguous", "cpu", "count"])
+def test_k1_refuses_bad_input(smoke, bc, case):
+    m = Model(t30(), device="cuda", bc_arrays=bc)
+    ins, block = bp.physics_case(m, True)
+    ins = list(ins)
+    if case == "dtype":
+        ins[2] = ins[2].half()
+    elif case == "mixed":
+        ins[5] = ins[5].double()
+    elif case == "shape":
+        ins[3] = ins[3][:-1]
+    elif case == "noncontiguous":
+        ins[4] = ins[4].transpose(1, 2).contiguous().transpose(1, 2)
+    elif case == "cpu":
+        ins[6] = ins[6].cpu()
+    else:
+        ins.append(ins[5])
+    fused.reset_launches()
+    with pytest.raises(ValueError):
+        fused.launch_kernel(m.cfg, True, ins, block)
+    assert fused.launches == 0
 
 
 def spectral_case(preset, precision, batch):

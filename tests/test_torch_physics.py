@@ -21,7 +21,7 @@ from speedy_tpu.models.geopotential import get_geopotential as jgeop
 from speedy_tpu.models.model import Model as JModel
 from speedy_tpu.models.tendencies import grid_dynamics_tendencies as jgdt
 from speedy_tpu.utils import calendar as jcal
-from speedy_tpu_torch.config import t30
+from speedy_tpu_torch.config import PRESETS, from_preset, t30
 from speedy_tpu_torch.models import physics as tphys
 from speedy_tpu_torch.models.model import Model
 from speedy_tpu_torch.models.physics import fused
@@ -202,3 +202,56 @@ def test_wrapper_rejects_cpu_launch(setup):
     with pytest.raises(ValueError, match="CUDA"):
         fused.launch_kernel(tm.cfg, True, ins, fused.argument_block(tm.pp))
     assert fused.launches == 0
+
+
+STATIC_SMEM_BYTES = 48 * 1024  # a block's shared memory without an opt-in
+MAX_SMEM_BYTES = 232448        # 227 KB, the most an H100 block may opt in to
+
+
+@pytest.mark.parametrize("preset", sorted(PRESETS))
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_block_plan_fits_the_card(preset, itemsize):
+    """The kernel's launch fits an H100 at every preset, type, built kx and
+    variant: 256 threads (COLS columns x LANES lanes, a lane per level),
+    blocks that cover the grid, and shared memory within the 48 KB a block
+    gets without an opt-in (fp32) or within the 227 KB opt-in (fp64, which
+    the launch requests above 48 KB)."""
+    cfg = from_preset(preset)
+    ncol = cfg.il * cfg.ix
+    for kx in (5, 7, 8):
+        for sw in (True, False):
+            plan = fused.block_plan(kx, cfg.il, cfg.ix, itemsize, sw)
+            assert plan.threads == fused.COLS * fused.LANES == 256
+            assert plan.cols == fused.COLS and kx <= fused.LANES
+            assert (plan.blocks - 1) * plan.cols < ncol <= plan.blocks * plan.cols
+            assert plan.smem <= MAX_SMEM_BYTES
+            if itemsize == 4:
+                assert plan.smem <= STATIC_SMEM_BYTES
+    # the largest block: fp64, kx=8, SW
+    assert fused.block_plan(8, cfg.il, cfg.ix, 8, True).smem == (
+        (37 + 105 + 112 + 7 + 15) * (32 * 8 + 16))
+
+
+def test_launch_signature_layout():
+    """The wrapper's per-signature record: one output buffer holding the
+    outputs back to back, in output_shapes order, and the inputs' sizes in
+    kernel_inputs order."""
+    for sw, n_in, n_out in ((True, fused.N_IN_SW, fused.N_OUT_SW),
+                            (False, fused.N_IN, fused.N_OUT)):
+        sig = fused._signature(8, 48, 96, torch.float32, sw)
+        assert sig is fused._signature(8, 48, 96, torch.float32, sw)
+        assert len(sig.in_shapes) == len(sig.in_numels) == n_in
+        assert sig.out_shapes == fused.output_shapes(8, 48, 96, sw)
+        assert len(sig.out_numels) == n_out
+        ends = np.cumsum(sig.out_numels)
+        np.testing.assert_array_equal(sig.out_offsets[1:], ends[:-1] * 4)
+        assert [v[2] for v in sig.out_views] == [0] + ends[:-1].tolist()
+        buf = torch.arange(float(ends[-1]))
+        for (shape, stride, off), n in zip(sig.out_views, sig.out_numels):
+            view = torch.as_strided(buf, shape, stride, off)
+            assert view.is_contiguous() and view.shape == shape
+            assert view.flatten()[0] == off and view.numel() == n
+    with pytest.raises(ValueError, match="kx=6"):
+        fused._signature(6, 48, 96, torch.float32, True)
+    with pytest.raises(ValueError, match="dtype"):
+        fused._signature(8, 48, 96, torch.float16, True)
