@@ -32,9 +32,21 @@ Phases (each prints one line or more; any failure exits non-zero):
     innovations from a numpy seed; then 2 fp32 days with SPPT on the card;
  8. the run path: Model.run over one day with the NetCDF writer, and a
     checkpoint at day 1 resumed to day 2 against a straight 2-day run
-    (SPPT on).
-The last two lines are the kernel table and the result line. Runs on the
-stand-in boundary set (speedy_tpu_torch/utils/synthetic_bc.py).
+    (SPPT on);
+ 9. ensembles: (a) the column-physics kernel with an ensemble's members as
+    extra columns (bench_physics.run_members: 1, 8 and 64 members at T30,
+    fp64 and fp32, SW and non-SW) against its plain chain on the same
+    inputs, each member's outputs equal to a one-member launch on its
+    inputs, with the graph-replay time per call and per member, the bytes
+    bound and the share of it; (b) a 2-member SPPT ensemble, boot + 6 fp64
+    steps on the CPU and on CUDA with the same per-member innovations;
+    (c) the ensemble path: fp32 T30 with SPPT on, Ensemble.initialize +
+    run_days over 2 days at 8 and at 64 members with the stability guard
+    per member, timing the second day (member-days/min, ms/step), every
+    field finite, the members apart, and 2 x nsteps kernel launches
+    whatever the member count.
+The last three lines are the kernel table, the card and the result line.
+Runs on the stand-in boundary set (speedy_tpu_torch/utils/synthetic_bc.py).
 """
 from __future__ import annotations
 
@@ -63,6 +75,7 @@ TRANSFORM_CASES = (("t30", ("fp64", "fp32"), (1, 7) + tuple(BENCH_BATCHES)),
                    ("t85", ("fp64",), (256,)))
 SPPT_NOISE_SEED = 12345
 N_TIMED = 100
+ENSEMBLE_SIZES = (8, 64)   # [9] (c)
 
 
 def ptxas_summary(log: str):
@@ -70,12 +83,13 @@ def ptxas_summary(log: str):
     lines, name = [], None
     for line in log.splitlines():
         m = re.search(r"Function properties for \S*column_physics_kernelI"
-                      r"([fd])Li(\d)ELb([01])E", line)
+                      r"([fd])Li(\d)ELb([01])ELb([01])E", line)
         t = re.search(r"Function properties for \S*(synthesis|analysis)"
                       r"_kernelI([fd])Li(\d+)ELi(\d+)E(?:Li(\d+)E)?E", line)
         if m:
             name = (f"{'fp32' if m.group(1) == 'f' else 'fp64'} kx={m.group(2)}"
-                    f" {'sw' if m.group(3) == '1' else 'nosw'}")
+                    f" {'sw' if m.group(3) == '1' else 'nosw'}"
+                    f"{' members' if m.group(4) == '1' else ''}")
         elif t:
             name = f"{t.group(1)} {'fp32' if t.group(2) == 'f' else 'fp64'}"
             second = "TJ" if t.group(1) == "synthesis" else "TM"
@@ -298,6 +312,96 @@ def run_phase(bc, start):
     return files_ok and same
 
 
+def ensemble_phase(bc, start, card):
+    """[9] Ensembles: (a) K1 with members, (b) CPU vs CUDA, (c) the ensemble
+    path. Returns (ok, K1 rows at 64 members by variant, K1 launches of the
+    64-member run as (all, sw))."""
+    from speedy_tpu_torch.config import t30
+    from speedy_tpu_torch.models.model import Model, one_step
+    from speedy_tpu_torch.models.physics import fused
+    from speedy_tpu_torch.parallel.ensemble import Ensemble
+    from speedy_tpu_torch.utils import calendar as cal
+
+    t_phase = time.perf_counter()
+    ok, rows = True, {}
+    for rec in bench_physics.run_members():
+        good = bench_physics.passed(rec)
+        ok &= good
+        print(f"[9] K1 {rec['members']} members {rec['preset']} "
+              f"{rec['precision']} {rec['variant']}: worst "
+              f"{rec['worst']:.3e} (bound {rec['bound']:.0e}) finite="
+              f"{rec['finite']} members equal one-member launches="
+              f"{rec['members_equal_single']}; kernel "
+              f"{rec['kernel_graph_us']:.3f} us/call (graph), "
+              f"{rec['us_per_member']:.3f} us/member, eager "
+              f"{rec['kernel_eager_us']:.1f} us, plain "
+              f"{rec['plain_us'] * 1e-3:.3f} ms, bound "
+              f"{rec['bound_us']:.3f} us ({rec['bound_by']}), share of the "
+              f"bound {rec['share']:.1%} {'ok' if good else 'FAILED'}")
+        if rec["members"] == 64 and rec["precision"] == "fp32":
+            rows[rec["variant"]] = dict(
+                ms=rec["kernel_graph_us"] * 1e-3,
+                plain_ms=rec["plain_us"] * 1e-3,
+                bound_ms=rec["bound_us"] * 1e-3, bound_by=rec["bound_by"],
+                max_abs_err=rec["max_abs_err"])
+
+    # (b) CPU vs CUDA, 2 members, SPPT on, the same innovations
+    states = {}
+    for dev in ("cpu", "cuda"):
+        m = Model(t30(precision="fp64", sppt_on=True), device=dev,
+                  bc_arrays=bc, sppt_noise=sppt_noise(SPPT_NOISE_SEED))
+        ens = Ensemble(m, 2, noise=[sppt_noise(SPPT_NOISE_SEED + 1 + i)
+                                    for i in range(2)])
+        s = ens.initialize(start)
+        daily = m.daily_forcing(s, start, start)
+        for i in range(6):
+            s, _ = one_step(m.cfg, m.pp, m.lsp, m.mc, s, daily,
+                            i % m.cfg.nstrad == 0, noise=ens.noise)
+        states[dev] = dict(s.prog._asdict(), sppt=s.sppt.spec)
+    worst = {f: max(((a[k] - states["cuda"][f][k].cpu()).abs().max()
+                     / a[k].abs().max()).item() for k in range(2))
+             for f, a in states["cpu"].items()}
+    good = max(worst.values()) <= STEP_BOUND
+    ok &= good
+    print("[9] 2-member SPPT ensemble fp64 boot+6 steps CPU vs CUDA, worst "
+          "member: " + " ".join(f"{k}={v:.2e}" for k, v in worst.items())
+          + f" (bound {STEP_BOUND:.0e}) {'ok' if good else 'FAILED'}")
+
+    # (c) the ensemble path, fp32 SPPT, 2 days, the second timed
+    model = Model(t30(sppt_on=True), device="cuda", bc_arrays=bc)
+    nsteps = model.cfg.nsteps
+    day1 = cal.next_day(start)
+    launches = None
+    for members in ENSEMBLE_SIZES:
+        ens = Ensemble(model, members, base_seed=0)
+        estate = ens.initialize(start)
+        fused.reset_launches()
+        estate, _ = ens.run_days(estate, start, 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        estate, _ = ens.run_days(estate, day1, 1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_launch, n_sw = fused.launches, fused.launches_sw
+        finite = all(bool(torch.isfinite(x).all())
+                     for g in estate[:3] for x in g)
+        spread = min(float((estate.prog.vor[k] - estate.prog.vor[0]).abs()
+                           .max()) for k in range(1, members))
+        good = finite and spread > 0.0 and n_launch == 2 * nsteps
+        ok &= good
+        print(f"[9] ensemble fp32 T30 SPPT {members} members, 2 days "
+              f"(guard per member each day): second day {wall:.3f} s, "
+              f"{members / (wall / 60.0):.1f} member-days/min, "
+              f"{wall / nsteps * 1e3:.3f} ms/step on {card}; K1 launches "
+              f"{n_launch} (sw {n_sw}), expected {2 * nsteps}; finite="
+              f"{finite}, smallest member spread (vor) {spread:.3e} "
+              f"{'ok' if good else 'FAILED'}")
+        if members == 64:
+            launches = (n_launch, n_sw)
+    print(f"[9] phase time {time.perf_counter() - t_phase:.1f} s")
+    return ok, rows, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -420,6 +524,10 @@ def main() -> int:
     if not run_phase(bc, start):
         print("[8] FAILED")
         return 1
+    e_ok, e_rows, (n_m64, n_m64_sw) = ensemble_phase(bc, start, card)
+    if not e_ok:
+        print("[9] FAILED")
+        return 1
 
     kernels = []
     for variant, launches in (("sw", n_launch_sw),
@@ -427,6 +535,15 @@ def main() -> int:
         r = rows[("t30", "fp32", variant)]
         kernels.append(dict(
             name=f"column_physics_{variant}", route="cuda",
+            source="speedy_tpu_torch/csrc/column_physics.cu",
+            replaces="speedy_tpu/models/physics/fused.py:87",
+            launches=launches, max_abs_err=r["max_abs_err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=None))
+    for variant, launches in (("sw", n_m64_sw), ("nosw", n_m64 - n_m64_sw)):
+        r = e_rows[variant]
+        kernels.append(dict(
+            name=f"column_physics_{variant}_m64", route="cuda",
             source="speedy_tpu_torch/csrc/column_physics.cu",
             replaces="speedy_tpu/models/physics/fused.py:87",
             launches=launches, max_abs_err=r["max_abs_err"], ms=r["ms"],

@@ -13,7 +13,12 @@ plain chain's eager time, the least time the card could take for the call
 (bound) and the kernel's share of it. It first prints the graph-replay time
 of one trivial launch (a one-element in-place add), the floor against which
 a kernel of a few microseconds is read, and the card's name and power
-limit. Needs a CUDA device and refuses to run without one.
+limit. Then, for an ensemble's members as extra columns of one launch
+(MEMBER_COUNTS members at T30, each type and variant), one line each: the
+worst error against the plain chain on the same member-batched inputs,
+whether each member's outputs equal a one-member launch on that member's
+inputs, and the graph-replay time per call and per member beside the
+bound. Needs a CUDA device and refuses to run without one.
 
 The script reads only what every version of the kernel's wrapper has
 (``fused.kernel_inputs``, ``launch_kernel``, ``plain_outputs``), so run as a
@@ -23,6 +28,7 @@ checkout's kernel.
 from __future__ import annotations
 
 import json
+import math
 import sys
 
 import numpy as np
@@ -35,8 +41,14 @@ FP64_BOUND = 1e-12        # field-normalised, kernel vs plain, fp64
 FP32_BOUND = 1e-4         # field-normalised, kernel vs plain, fp32
 K1_PRESETS = ("t30", "t85", "t170")
 PRECISIONS = ("fp64", "fp32")
+MEMBER_COUNTS = (1, 8, 64)
 REPS = 100
 PLAIN_REPS = 20           # the plain chain is host-bound: fewer calls do
+# kernel inputs that carry the member axis in an ensemble: the grid
+# fields, albsfc, alb_s, stl_am, sst_am and the carried radiation (the
+# rest, as daily_update and the model give them: alb_l, snowc, soilw_am,
+# the orography, masks and date fields, shared by all members)
+PER_MEMBER = (0, 1, 2, 3, 4, 5, 6, 8, 11, 12, 23, 24, 25, 26)
 OUTPUT_NAMES = ["utend", "vtend", "ttend", "qtend", "precnv", "precls",
                 "cbmf", "slrd", "slr", "olr", "ustr", "vstr", "shf", "evap",
                 "slru", "hfluxn", "tsfc", "tskin", "u0", "v0", "t0", "tau2",
@@ -84,6 +96,39 @@ def perturb(ins, seed=0):
     return out
 
 
+def member_inputs(ins, members):
+    """Kernel inputs of ``members`` members from one model's (physics_case),
+    laid out as an ensemble's step gives them: the winds, temperature and
+    humidity perturbed by each member's own seed (tg and qg as slices of
+    wider buffers, as the model's merged synthesis leaves them), the other
+    per-member fields (PER_MEMBER) copied to each member, soilw_am
+    expanded over the members (member stride 0, as the step's expanded
+    surface fields are), the shared ones as they are."""
+    per = [perturb(ins, seed=m) for m in range(members)]
+    out = list(ins)
+    for i in (0, 1, 2, 3):
+        x = torch.stack([p[i] for p in per])
+        if i in (2, 3):
+            wide = torch.zeros((members, x.shape[1] + 2) + x.shape[2:],
+                               dtype=x.dtype, device=x.device)
+            wide[:, 1:-1] = x
+            x = wide[:, 1:-1]
+        out[i] = x
+    every = lambda x: x.expand((members,) + tuple(x.shape))
+    for i in PER_MEMBER[4:]:
+        if i < len(ins):
+            out[i] = every(ins[i]).contiguous()
+    out[10] = every(ins[10])
+    return out
+
+
+def unique_bytes(x: torch.Tensor) -> int:
+    """Bytes of the distinct elements of x: a dimension of stride 0 (an
+    input all members share) counts once."""
+    return math.prod(n for n, st in zip(x.shape, x.stride()) if st != 0) \
+        * x.element_size()
+
+
 def field_errors(kernel_outs, plain_outs):
     """Per output: (max |k - p| / max |p|, max |k - p|)."""
     errs = []
@@ -114,9 +159,10 @@ def worst_columns(kernel_outs, plain_outs, bound, il, ix):
 def bound_ms(ins, outs, dtype, kx, ncol):
     """Least time for the call: bytes (inputs read once, outputs written
     once; the winds are passed at the lowest level only, the one the chain
-    reads) over HBM bandwidth vs operations over the peak rate. Operations
-    are a lower estimate of 100 per level per column."""
-    nbytes = sum(x.numel() * x.element_size() for x in ins + outs)
+    reads; an input all members share counts once) over HBM bandwidth vs
+    operations over the peak rate. Operations are a lower estimate of 100
+    per level per column; ``ncol`` counts every member's columns."""
+    nbytes = sum(unique_bytes(x) for x in ins + outs)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = 100.0 * kx * ncol / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -164,7 +210,9 @@ def time_case(model, compute_sw, ins, block, reps):
     plain_ms = time_ms(
         lambda: fused.plain_outputs(cfg, model.pp, compute_sw, ins),
         min(reps, PLAIN_REPS))
-    b_ms, b_by = bound_ms(ins, call(), cfg.rdtype, cfg.kx, cfg.il * cfg.ix)
+    members = fused.members_of(ins) or 1
+    b_ms, b_by = bound_ms(ins, call(), cfg.rdtype, cfg.kx,
+                          members * cfg.il * cfg.ix)
     return ms, eager_ms, plain_ms, b_ms, b_by
 
 
@@ -202,8 +250,67 @@ def run():
     return records
 
 
+def check_members(model, compute_sw, members):
+    """The kernel over ``members`` members (member_inputs of the perturbed
+    inputs) against the plain chain on the same inputs, and each member's
+    outputs against a one-member launch on that member's inputs (equal:
+    each column runs the same code). Returns (inputs, block, record)."""
+    from speedy_tpu_torch.models.physics import fused
+    cfg = model.cfg
+    booted, block = physics_case(model, compute_sw)
+    ins = member_inputs(booted, members)
+    kout = fused.launch_kernel(cfg, compute_sw, ins, block)
+    pout = fused.plain_outputs(cfg, model.pp, compute_sw, ins)
+    shapes = fused.input_shapes(cfg.kx, cfg.il, cfg.ix, compute_sw)
+    same = True
+    for m in range(members):
+        one = fused.launch_kernel(
+            cfg, compute_sw, [x[m] if x.dim() > len(s) else x
+                              for x, s in zip(ins, shapes)], block)
+        same &= all(torch.equal(k[m], o) for k, o in zip(kout, one))
+    torch.cuda.synchronize()
+    errs = field_errors(kout, pout)
+    return ins, block, dict(
+        worst=max(e[0] for e in errs), max_abs_err=max(e[1] for e in errs),
+        finite=all(bool(torch.isfinite(k).all()) for k in kout),
+        shapes_ok=all(tuple(k.shape) == (members,) + tuple(o.shape[1:])
+                      for k, o in zip(kout, pout)),
+        members_equal_single=same)
+
+
+def run_members(preset="t30"):
+    """One record per (members, precision, variant) of MEMBER_COUNTS x
+    PRECISIONS x (SW, non-SW) at ``preset``: the member-batched check
+    (check_members) and the times."""
+    from speedy_tpu_torch.config import from_preset
+    from speedy_tpu_torch.models.model import Model
+    from speedy_tpu_torch.utils.synthetic_bc import synthetic_boundaries
+    bc = synthetic_boundaries(0)
+    records = []
+    for prec in PRECISIONS:
+        model = Model(from_preset(preset, precision=prec), device="cuda",
+                      bc_arrays=bc)
+        for members in MEMBER_COUNTS:
+            for sw in (True, False):
+                ins, block, rec = check_members(model, sw, members)
+                ms, eager_ms, plain_ms, b_ms, b_by = time_case(
+                    model, sw, ins, block, REPS)
+                rec.update(
+                    preset=preset, precision=prec, members=members,
+                    variant="sw" if sw else "nosw",
+                    bound=error_bound(model.cfg.rdtype),
+                    kernel_graph_us=ms * 1e3, kernel_eager_us=eager_ms * 1e3,
+                    us_per_member=ms * 1e3 / members,
+                    plain_us=plain_ms * 1e3, bound_us=b_ms * 1e3,
+                    bound_by=b_by, share=b_ms / ms)
+                records.append(rec)
+    return records
+
+
 def passed(rec) -> bool:
-    return rec["worst"] <= rec["bound"] and rec["finite"]
+    return (rec["worst"] <= rec["bound"] and rec["finite"]
+            and rec.get("members_equal_single", True)
+            and rec.get("shapes_ok", True))
 
 
 def main() -> int:
@@ -215,7 +322,7 @@ def main() -> int:
     print(json.dumps(dict(card=card_line(),
                           trivial_graph_us=floor_ms(REPS) * 1e3)))
     ok = True
-    for rec in run():
+    for rec in run() + run_members():
         ok &= passed(rec)
         print(json.dumps({k: v for k, v in rec.items() if k != "checks"}))
     # the kernel was built at its first launch

@@ -107,10 +107,11 @@ class ModelConfig:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Refuse the options this package does not implement yet."""
+    """Refuse the options this package does not implement yet.
+    ``n_ensemble`` is accepted and, as in the JAX package, not read:
+    parallel.Ensemble takes its member count."""
     for on, what in ((cfg.sst_anomaly_forcing, "sst_anomaly_forcing=True"),
                      (not cfg.lw_band_vectorized, "lw_band_vectorized=False"),
-                     (cfg.n_ensemble > 1, "n_ensemble>1"),
                      (cfg.sea_coupling_flag >= 1, "sea_coupling_flag>=1")):
         if on:
             raise NotImplementedError(f"{what} is not implemented")

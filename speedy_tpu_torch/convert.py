@@ -10,6 +10,10 @@ arrays, or the nested dicts ``model_state_to_numpy`` returns) and builds
 this package's ModelState on a device. The random-number state does not
 carry over between the two packages (a JAX key is not a torch generator):
 the SPPT state gets a new generator seeded with 0.
+
+An ensemble's state (the JAX package's Ensemble state, every leaf [M, ...])
+converts the same way, member axis and all; its SPPT state gets one
+generator per member, member i's seeded with i.
 """
 from __future__ import annotations
 
@@ -35,7 +39,8 @@ def _get(tree: Any, name: str) -> Any:
 
 def model_state_from_numpy(tree: Any, device, dtype: torch.dtype
                            ) -> ModelState:
-    """numpy state tree -> ModelState of ``dtype`` tensors on ``device``."""
+    """numpy state tree -> ModelState of ``dtype`` tensors on ``device``
+    (one model's, or an ensemble's with a leading member axis)."""
     tensor = lambda a: torch.as_tensor(np.array(a), dtype=dtype,
                                        device=device)
     groups = {}
@@ -44,9 +49,13 @@ def model_state_from_numpy(tree: Any, device, dtype: torch.dtype
         groups[group] = cls(**{f: tensor(_get(sub, f)) for f in cls._fields})
     sppt = _get(tree, "sppt")
     if sppt is not None:
+        spec = tensor(_get(sppt, "spec"))
+        gen = lambda seed: torch.Generator(device=device).manual_seed(seed)
+        members = spec.dim() == 5     # [M, kx, mx, nx, 2]
         groups["sppt"] = SpptState(
-            spec=tensor(_get(sppt, "spec")),
-            generator=torch.Generator(device=device).manual_seed(0))
+            spec=spec,
+            generator=tuple(gen(i) for i in range(len(spec)))
+            if members else gen(0))
     return ModelState(**groups)
 
 

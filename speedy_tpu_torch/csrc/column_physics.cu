@@ -65,10 +65,26 @@
 // 68-75 KB in fp64 at kx=8 (opted in above 48 KB). Templates cover
 // fp32/fp64, kx in {5, 7, 8} and the SW / non-SW variants.
 //
+// Ensembles. The JAX package vmaps the Pallas call over an ensemble's
+// members. Here the members are extra columns of one launch: the grid's
+// second dimension is the member, so a block's 32 columns belong to one
+// member and its column indices are those of a one-model launch. Each
+// input row is read at its own member stride, 0 for what all members share
+// (orography, masks, the date's [il] fields and ablco2, or a field
+// expanded over the members), so a shared row is not copied M times; each
+// output row is [M, ...], member-major. Every column runs the same code
+// whatever its member, so a member's outputs are those of a one-member
+// launch on its inputs. The member strides ride in MemberParams, and only
+// the MEMBERS instantiations read them: with them in every launch's
+// parameters, one model's launch was measured 3-16% slower (PERF.md), so
+// one model keeps the kernel it had.
+//
 // Built with nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false
 // (no fast-math), loaded with ctypes through column_physics_launch() below.
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -176,12 +192,22 @@ constexpr int smem_bytes() {
 
 template <typename T>
 struct Params {
-  const void* in_rows[MAX_IN_ROWS];  // global row of each staged input row
-  void* out_rows[MAX_OUT_ROWS];      // global row of each output row
+  const void* in_rows[MAX_IN_ROWS];  // (member 0's) row of each staged input row
+  void* out_rows[MAX_OUT_ROWS];      // (member 0's) row of each output row
   const T* lat[N_LAT];               // fsol ozupp ozone zenit stratz coa ablco2
   ColumnTables<T> c;
-  int S, ix;                         // columns (il*ix), longitudes
+  int S, ix;                         // one member's columns (il*ix), longitudes
 };
+
+// An ensemble's launch: also the elements from one member's row to the next
+template <typename T>
+struct MemberParams : Params<T> {
+  int in_mstride[MAX_IN_ROWS];
+  int out_mstride[MAX_OUT_ROWS];
+};
+
+template <typename T, bool MEMBERS>
+using ParamsOf = std::conditional_t<MEMBERS, MemberParams<T>, Params<T>>;
 
 template <typename T>
 struct Tile {
@@ -836,11 +862,11 @@ __device__ __forceinline__ void walk_surface_lw_up(const ColumnTables<T>& c,
         (at(L::LW + k, col) + dfa_add[k]) * rps * c.tab[GRDSCP][k];
 }
 
-template <typename T, int KX, bool SW>
+template <typename T, int KX, bool SW, bool MEMBERS>
 // fp64: at most 80 registers, so that three blocks share an SM (fp32
 // fits four blocks without a cap)
 __global__ void __launch_bounds__(kThreads, sizeof(T) == 8 ? 3 : 1)
-column_physics_kernel(const __grid_constant__ Params<T> p) {
+column_physics_kernel(const __grid_constant__ ParamsOf<T, MEMBERS> p) {
   using L = Layout<KX, SW>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const Tile<T> at{reinterpret_cast<T*>(smem_raw)};
@@ -848,6 +874,19 @@ column_physics_kernel(const __grid_constant__ Params<T> p) {
   const int S = p.S;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int col0 = blockIdx.x * kCols;
+  // element offset of row r's member in an ensemble's launch
+  auto in_member = [&](int r) -> size_t {
+    if constexpr (MEMBERS)
+      return static_cast<size_t>(blockIdx.y) * p.in_mstride[r];
+    else
+      return 0;
+  };
+  auto out_member = [&](int r) -> size_t {
+    if constexpr (MEMBERS)
+      return static_cast<size_t>(blockIdx.y) * p.out_mstride[r];
+    else
+      return 0;
+  };
 
   // ---- stage the inputs: one warp per row of 32 neighbouring columns ----
   {
@@ -862,7 +901,7 @@ column_physics_kernel(const __grid_constant__ Params<T> p) {
     for (int i = 0; i < PER; ++i) {
       const int r = warp + 8 * i;
       if (r < L::N_IN_ROWS) {
-        v[i] = static_cast<const T*>(p.in_rows[r])[g];
+        v[i] = (static_cast<const T*>(p.in_rows[r]) + in_member(r))[g];
       } else if (r < NR) {
         const int f = r - L::N_IN_ROWS;
         v[i] = p.lat[f][f < N_LAT - 1 ? gj : 0];
@@ -922,7 +961,8 @@ column_physics_kernel(const __grid_constant__ Params<T> p) {
     for (int i = 0; i < (L::N_OUT_ROWS + 7) / 8; ++i) {
       const int r = warp + 8 * i;
       if (r < L::N_OUT_ROWS)
-        static_cast<T*>(p.out_rows[r])[col0 + lane] = at(L::OUT + r, lane);
+        (static_cast<T*>(p.out_rows[r]) + out_member(r))[col0 + lane] =
+            at(L::OUT + r, lane);
     }
   }
 }
@@ -940,21 +980,34 @@ constexpr int output_rows(int i) {
        : i == 21 ? 4 * KX : i == 22 ? 2 : i == 23 ? KX : 1;
 }
 
-template <typename T, int KX, bool SW>
-cudaError_t launch(const void* const* ins, void* const* outs,
+template <typename T, int KX, bool SW, bool MEMBERS>
+cudaError_t launch(int members, const void* const* ins,
+                   const long long* in_mstride, void* const* outs,
                    const double* block, int il, int ix, cudaStream_t stream) {
   using L = Layout<KX, SW>;
-  Params<T> p;
-  const size_t row = static_cast<size_t>(il) * ix * sizeof(T);
+  ParamsOf<T, MEMBERS> p;
+  const long long S1 = static_cast<long long>(il) * ix;
+  if (members < 1 || members > 65535 || S1 > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  const size_t row = static_cast<size_t>(S1) * sizeof(T);
   int n = 0;
-  for (int i = 0; i < (SW ? N_IN_SW : N_IN); ++i)
-    for (int r = 0; r < input_rows<KX>(i); ++r)
+  for (int i = 0; i < (SW ? N_IN_SW : N_IN); ++i) {
+    if (in_mstride[i] < 0 || in_mstride[i] > 0x7fffffffLL)
+      return cudaErrorInvalidValue;
+    for (int r = 0; r < input_rows<KX>(i); ++r) {
+      if constexpr (MEMBERS) p.in_mstride[n] = static_cast<int>(in_mstride[i]);
       p.in_rows[n++] = static_cast<const char*>(ins[i]) + r * row;
+    }
+  }
   if (n != L::N_IN_ROWS) return cudaErrorInvalidValue;
   n = 0;
   for (int i = 0; i < (SW ? N_OUT : N_OUT_NOSW); ++i)
-    for (int r = 0; r < output_rows<KX>(i); ++r)
+    for (int r = 0; r < output_rows<KX>(i); ++r) {
+      // outputs are [M, rows, il, ix], contiguous
+      if constexpr (MEMBERS)
+        p.out_mstride[n] = static_cast<int>(output_rows<KX>(i) * S1);
       p.out_rows[n++] = static_cast<char*>(outs[i]) + r * row;
+    }
   if (n != L::N_OUT_ROWS) return cudaErrorInvalidValue;
   for (int i = 0; i < N_LAT; ++i) p.lat[i] = static_cast<const T*>(ins[16 + i]);
   ColumnTables<T>& c = p.c;
@@ -968,7 +1021,7 @@ cudaError_t launch(const void* const* ins, void* const* outs,
   c.fshcse = T(s[4]);
   c.fvdise = T(s[5]);
   c.vdif_mask = static_cast<int>(s[6]);
-  p.S = il * ix;
+  p.S = static_cast<int>(S1);
   p.ix = ix;
 
   constexpr int smem = smem_bytes<T, KX, SW>();
@@ -981,33 +1034,43 @@ cudaError_t launch(const void* const* ins, void* const* outs,
     if (err != cudaSuccess) return err;
     if (dev >= 32) return cudaErrorInvalidDevice;
     if (!((opted_in >> dev) & 1u)) {
-      err = cudaFuncSetAttribute(column_physics_kernel<T, KX, SW>,
+      err = cudaFuncSetAttribute(column_physics_kernel<T, KX, SW, MEMBERS>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  smem);
       if (err != cudaSuccess) return err;
       opted_in |= 1u << dev;
     }
   }
-  const int blocks = (p.S + kCols - 1) / kCols;
-  column_physics_kernel<T, KX, SW><<<blocks, kThreads, smem, stream>>>(p);
+  const dim3 blocks((p.S + kCols - 1) / kCols, members);
+  column_physics_kernel<T, KX, SW, MEMBERS>
+      <<<blocks, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <typename T, int KX>
-cudaError_t launch_sw(int sw, const void* const* ins, void* const* outs,
+cudaError_t launch_sw(int sw, int members, const void* const* ins,
+                      const long long* ms, void* const* outs,
                       const double* block, int il, int ix, cudaStream_t st) {
-  return sw ? launch<T, KX, true>(ins, outs, block, il, ix, st)
-            : launch<T, KX, false>(ins, outs, block, il, ix, st);
+  // one model (or one member) takes the kernel without member strides
+  if (members > 1)
+    return sw ? launch<T, KX, true, true>(members, ins, ms, outs, block, il,
+                                          ix, st)
+              : launch<T, KX, false, true>(members, ins, ms, outs, block, il,
+                                           ix, st);
+  return sw ? launch<T, KX, true, false>(members, ins, ms, outs, block, il,
+                                         ix, st)
+            : launch<T, KX, false, false>(members, ins, ms, outs, block, il,
+                                          ix, st);
 }
 
 template <typename T>
-cudaError_t launch_kx(int kx, int sw, const void* const* ins,
-                      void* const* outs, const double* block, int il, int ix,
-                      cudaStream_t st) {
+cudaError_t launch_kx(int kx, int sw, int members, const void* const* ins,
+                      const long long* ms, void* const* outs,
+                      const double* block, int il, int ix, cudaStream_t st) {
   switch (kx) {
-    case 5: return launch_sw<T, 5>(sw, ins, outs, block, il, ix, st);
-    case 7: return launch_sw<T, 7>(sw, ins, outs, block, il, ix, st);
-    case 8: return launch_sw<T, 8>(sw, ins, outs, block, il, ix, st);
+    case 5: return launch_sw<T, 5>(sw, members, ins, ms, outs, block, il, ix, st);
+    case 7: return launch_sw<T, 7>(sw, members, ins, ms, outs, block, il, ix, st);
+    case 8: return launch_sw<T, 8>(sw, members, ins, ms, outs, block, il, ix, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1019,25 +1082,32 @@ int layout_smem(int sw) {
 
 }  // namespace
 
-// C interface. ins/outs: host arrays of 27 device pointers in the order of
-// fused.kernel_inputs / fused.output_shapes (unused slots may be null);
-// block: the float64 argument block of fused.argument_block. Returns the
-// cudaError_t of the launch (0 on success). Does not synchronise.
-extern "C" int column_physics_launch(int f64, int kx, int sw, int il, int ix,
-                                     const void* const* ins,
+// C interface. members: the ensemble's member count (1 for one model);
+// ins/outs: host arrays of 27 device pointers in the order of
+// fused.kernel_inputs / fused.output_shapes (unused slots may be null),
+// member 0's data; in_mstride: per input, the elements from one member's
+// data to the next (0 where all members share it); outputs are
+// [members, ...] and contiguous; block: the float64 argument block of
+// fused.argument_block. Returns the cudaError_t of the launch (0 on
+// success). Does not synchronise.
+extern "C" int column_physics_launch(int f64, int kx, int sw, int members,
+                                     int il, int ix, const void* const* ins,
+                                     const long long* in_mstride,
                                      void* const* outs, const double* block,
                                      void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err =
-      f64 ? launch_kx<double>(kx, sw, ins, outs, block, il, ix, st)
-          : launch_kx<float>(kx, sw, ins, outs, block, il, ix, st);
+      f64 ? launch_kx<double>(kx, sw, members, ins, in_mstride, outs, block,
+                              il, ix, st)
+          : launch_kx<float>(kx, sw, members, ins, in_mstride, outs, block,
+                             il, ix, st);
   return static_cast<int>(err);
 }
 
-// The launch for (type, kx, variant) on an il x ix grid: columns per
-// block, threads, blocks and dynamic shared memory in bytes
-// (fused.block_plan mirrors it). Returns 0, or cudaErrorInvalidValue for a
-// kx that is not built.
+// The launch for (type, kx, variant) on one model's il x ix grid: columns
+// per block, threads, blocks and dynamic shared memory in bytes
+// (fused.block_plan mirrors it; M members take M times the blocks).
+// Returns 0, or cudaErrorInvalidValue for a kx that is not built.
 extern "C" int column_physics_layout(int f64, int kx, int sw, int il, int ix,
                                      int* cols, int* threads, int* blocks,
                                      int* smem) {

@@ -21,6 +21,7 @@ from ..utils.io import load_boundary_file
 from ..utils.calendar import forint_weights, forin5_weights
 from .boundaries import fillsf, forchk
 from .physics import DailyForcing, SurfaceState, Fluxes, PhysicsParams
+from .axes import level
 from .physics.shortwave import zonal_average_fields, EMISFC
 from .physics.humidity import get_qsat
 
@@ -263,7 +264,10 @@ def daily_update(cfg: ModelConfig, pp: PhysicsParams, lsp: LandSeaParams,
                  surf: SurfaceState) -> DailyForcing:
     """Daily forcing update: climatology interpolation (couple_*_atm),
     sea-ice adjustment (sea_model.f90:283-305), albedo and orographic
-    corrections (forcing.f90:49-99)."""
+    corrections (forcing.f90:49-99). For an ensemble state what depends
+    only on the date is computed once and shared by all members (the solar
+    fields, ablco2, the climatologies, alb_l, snowc, tcorh); what reads the
+    surface state (alb_s, albsfc, qcorh) is per member."""
     stlcl = _interp(ds.w5, clim.stl12)
     snowdcl = _interp(ds.w2, clim.snowd12)
     soilwcl = _interp(ds.w2, clim.soilw12)
@@ -352,7 +356,7 @@ def couple_step(cfg: ModelConfig, lsp: LandSeaParams, daily: DailyForcing,
     # land
     if cfg.land_coupling_flag == 1:
         tanom = surf.stl_lm - daily.stlcl_ob
-        tanom = lsp.cdland * (tanom + lsp.rhcapl * fluxes.sfc.hfluxn[0])
+        tanom = lsp.cdland * (tanom + lsp.rhcapl * level(fluxes.sfc.hfluxn, 0))
         stl_lm = tanom + daily.stlcl_ob
         stl_am = stl_lm
     else:
@@ -363,9 +367,10 @@ def couple_step(cfg: ModelConfig, lsp: LandSeaParams, daily: DailyForcing,
     if cfg.sea_coupling_flag > 0 or cfg.ice_coupling_flag > 0:
         difice = ((ALBSEA - ALBICE) * fluxes.ssrd
                   + EMISFC * SBC * (SSTFR**4 - surf.tice_am**4)
-                  + fluxes.sfc.shf[1] + fluxes.sfc.evap[1] * ALHC)
-        hflux_i = fluxes.sfc.hfluxn[1] + difice * (1.0 - surf.sice_am)
-        hflux = fluxes.sfc.hfluxn[1] \
+                  + level(fluxes.sfc.shf, 1)
+                  + level(fluxes.sfc.evap, 1) * ALHC)
+        hflux_i = level(fluxes.sfc.hfluxn, 1) + difice * (1.0 - surf.sice_am)
+        hflux = level(fluxes.sfc.hfluxn, 1) \
             - daily.sicecl_ob * (hflux_i + lsp.beta * (SSTFR - surf.tice_om))
         tanom = surf.sst_om - daily.sstcl_ob
         tanom = lsp.cdsea * (tanom + lsp.rhcaps * hflux)
@@ -383,4 +388,9 @@ def couple_step(cfg: ModelConfig, lsp: LandSeaParams, daily: DailyForcing,
 
     surf = surf._replace(stl_lm=stl_lm, stl_am=stl_am, sst_om=sst_om,
                          tice_om=tice_om, sice_om=sice_om)
-    return _update_am_fields(cfg, daily, surf)
+    surf = _update_am_fields(cfg, daily, surf)
+    # in an ensemble, a field set from the date alone (the climatology)
+    # keeps the state's member axis, as a view that all members share
+    shape = torch.broadcast_shapes(*(x.shape for x in surf))
+    return SurfaceState(*(x if x.shape == shape else x.expand(shape)
+                          for x in surf))

@@ -10,6 +10,7 @@ import torch
 
 from ..config import ModelConfig
 from ..constants import RGAS
+from .axes import SPEC, level
 
 
 class GeopotentialConsts(NamedTuple):
@@ -36,14 +37,16 @@ def build_geopotential(cfg: ModelConfig, geom_np: dict,
 
 def get_geopotential(gc: GeopotentialConsts, t: torch.Tensor,
                      phis: torch.Tensor) -> torch.Tensor:
-    """Spectral T [kx, mx, nx, 2] + phis [mx, nx, 2] -> phi [kx, mx, nx, 2]
-    (geopotential.f90:33-57)."""
-    kx = t.shape[0]
+    """Spectral T [..., kx, mx, nx, 2] + phis [mx, nx, 2] -> phi
+    [..., kx, mx, nx, 2] (geopotential.f90:33-57)."""
+    kx = t.shape[-4]
     phi = [None] * kx
-    phi[kx - 1] = phis + gc.xgeop1[kx - 1] * t[kx - 1]
+    phi[kx - 1] = phis + gc.xgeop1[kx - 1] * level(t, kx - 1, SPEC)
     for k in range(kx - 2, -1, -1):
-        phi[k] = phi[k + 1] + gc.xgeop2[k + 1] * t[k + 1] + gc.xgeop1[k] * t[k]
-    phi = torch.stack(phi, dim=0)
-    corr = gc.corf[1: kx - 1, None, None] * (t[2:kx, 0] - t[0: kx - 2, 0])
-    phi[1: kx - 1, 0] += corr
+        phi[k] = phi[k + 1] + gc.xgeop2[k + 1] * level(t, k + 1, SPEC) \
+            + gc.xgeop1[k] * level(t, k, SPEC)
+    phi = torch.stack(phi, dim=-4)
+    corr = gc.corf[1: kx - 1, None, None] * (t[..., 2:kx, 0, :, :]
+                                             - t[..., 0: kx - 2, 0, :, :])
+    phi[..., 1: kx - 1, 0, :, :] += corr
     return phi

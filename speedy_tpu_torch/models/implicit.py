@@ -103,11 +103,11 @@ def implicit_terms(ic: ImplicitConsts, divdt: torch.Tensor, tdt: torch.Tensor,
                    psdt: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Semi-implicit correction of (divdt, tdt, psdt) (implicit.f90:168-217).
-    divdt/tdt [kx, mx, nx, 2], psdt [mx, nx, 2]."""
-    ye = torch.einsum("kq,qmnr->kmnr", ic.xd, tdt) \
-        + ic.tref1[:, None, None, None] * psdt[None]
+    divdt/tdt [..., kx, mx, nx, 2], psdt [..., mx, nx, 2]."""
+    ye = torch.einsum("kq,...qmnr->...kmnr", ic.xd, tdt) \
+        + ic.tref1[:, None, None, None] * psdt.unsqueeze(-4)
     yf = divdt + ic.elz[None, :, :, None] * ye
-    divdt_new = torch.einsum("mnkq,qmnr->kmnr", ic.xj, yf)
-    psdt_new = psdt - torch.einsum("kmnr,k->mnr", divdt_new, ic.dhsx)
-    tdt_new = tdt + torch.einsum("kq,qmnr->kmnr", ic.xc, divdt_new)
+    divdt_new = torch.einsum("mnkq,...qmnr->...kmnr", ic.xj, yf)
+    psdt_new = psdt - torch.einsum("...kmnr,k->...mnr", divdt_new, ic.dhsx)
+    tdt_new = tdt + torch.einsum("kq,...qmnr->...kmnr", ic.xc, divdt_new)
     return divdt_new, tdt_new, psdt_new

@@ -26,6 +26,7 @@ from ..utils.diagnostics import (Diagnostics, compute_diagnostics,
                                  check_diagnostics, format_diagnostics)
 from . import boundaries as bnd
 from . import coupling
+from .axes import level as L, levels
 from .geopotential import build_geopotential, get_geopotential
 from .hdiffusion import build_diffusion, build_diffusion_np, DiffusionConsts
 from .implicit import build_implicit, ImplicitConsts
@@ -35,7 +36,7 @@ from .physics.shortwave import init_radiation_state, RadiationState
 from .physics.sppt import (Noise, SpptState, gen_sppt, init_sppt_state,
                            sppt_ar1)
 from .prognostics import rest_state
-from .state import PrognosticState
+from .state import PrognosticState, time_level
 from .tendencies import DynConsts
 from .time_stepping import OrographicCorrection, first_step, step
 
@@ -99,27 +100,31 @@ def one_step(cfg: ModelConfig, pp: PhysicsParams,
     surf = coupling.couple_step(
         cfg, lsp, coupling.select_couple_daily(daily, couple_next),
         state.surf, aux.fluxes)
-    diag = compute_diagnostics(mc.dyn.sc, prog.vor[1], prog.div[1],
-                               prog.t[1]) if with_diag else None
+    now = time_level(prog, 1)
+    diag = compute_diagnostics(mc.dyn.sc, now.vor, now.div,
+                               now.t) if with_diag else None
     return ModelState(prog=prog, surf=surf, rad=aux.rad,
                       sppt=sppt_state), diag
 
 
 def gridded_fields(cfg: ModelConfig, mc: ModelConsts, prog: PrognosticState,
                    level: int = 0) -> Dict[str, torch.Tensor]:
-    """Physical-space output fields u, v, t, q, phi [kx, il, ix] and ps
-    [il, ix] at time level ``level`` (input_output.f90:183-206)."""
+    """Physical-space output fields u, v, t, q, phi [..., kx, il, ix] and
+    ps [..., il, ix] at time level ``level`` (input_output.f90:183-206),
+    for every member of an ensemble state at once."""
     kx, sc = cfg.kx, mc.dyn.sc
-    ucos, vcos = sp.uvspec(sc, prog.vor[level], prog.div[level])
-    wind = sp.spec_to_grid(sc, torch.cat([ucos, vcos], dim=0),
+    lv = time_level(prog, level)
+    ucos, vcos = sp.uvspec(sc, lv.vor, lv.div)
+    wind = sp.spec_to_grid(sc, torch.cat([ucos, vcos], dim=-4),
                            scale_by_inv_cos=True)
-    phi = get_geopotential(mc.dyn.gc, prog.t[level], mc.dyn.phis)
-    scal = torch.cat([prog.t[level], prog.tr[level, 0], phi,
-                      prog.ps[level][None]], dim=0)
+    phi = get_geopotential(mc.dyn.gc, lv.t, mc.dyn.phis)
+    scal = torch.cat([lv.t, lv.tr.select(-5, 0), phi, lv.ps.unsqueeze(-4)],
+                     dim=-4)
     g = sp.spec_to_grid(sc, scal)
-    return dict(u=wind[:kx], v=wind[kx:], t=g[:kx],
-                q=g[kx:2 * kx] * 1.0e-3, phi=g[2 * kx:3 * kx] / GRAV,
-                ps=P0 * torch.exp(g[3 * kx]))
+    return dict(u=levels(wind, 0, kx), v=levels(wind, kx, 2 * kx),
+                t=levels(g, 0, kx), q=levels(g, kx, 2 * kx) * 1.0e-3,
+                phi=levels(g, 2 * kx, 3 * kx) / GRAV,
+                ps=P0 * torch.exp(L(g, 3 * kx)))
 
 
 def run_day(cfg: ModelConfig, pp: PhysicsParams, lsp: coupling.LandSeaParams,
@@ -174,6 +179,19 @@ def boot(cfg: ModelConfig, pp: PhysicsParams, lsp: coupling.LandSeaParams,
     prog, aux = first_step(cfg, mc.dyn, mc.dc, mc.ic_half, mc.ic_full,
                            state.prog, corr, phys)
     return state._replace(prog=prog, rad=aux.rad, sppt=sppt_state)
+
+
+def check_day(diags: List[Diagnostics], day: int) -> None:
+    """The stability guard on a day's extrema (per member of an ensemble):
+    one host synchronisation."""
+    reke = torch.stack([d.reke for d in diags]).amax(dim=0)
+    deke = torch.stack([d.deke for d in diags]).amax(dim=0)
+    tm = torch.stack([d.tmean for d in diags])
+    tmin, tmax = tm.amin(dim=0), tm.amax(dim=0)
+    guard = torch.stack([reke, deke, tmin, tmax]).cpu().numpy()
+    check_diagnostics(Diagnostics(
+        reke=guard[0], deke=guard[1],
+        tmean=np.where(guard[2] < 180.0, guard[2], guard[3])), day)
 
 
 def _to_host(tensors: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
@@ -315,15 +333,7 @@ class Model:
                                       state, ds, cfg.diag_every,
                                       self.sppt_noise)
             if check:
-                reke = torch.stack([d.reke for d in diags]).amax(dim=0)
-                deke = torch.stack([d.deke for d in diags]).amax(dim=0)
-                tm = torch.stack([d.tmean for d in diags])
-                tmin, tmax = tm.amin(dim=0), tm.amax(dim=0)
-                guard = torch.stack([reke, deke, tmin, tmax]).cpu().numpy()
-                check_diagnostics(Diagnostics(
-                    reke=guard[0], deke=guard[1],
-                    tmean=np.where(guard[2] < 180.0, guard[2], guard[3])),
-                    day)
+                check_day(diags, day)
         return state
 
     def run(self, start: cal.Datetime, end: cal.Datetime,

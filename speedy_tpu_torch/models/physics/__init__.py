@@ -24,6 +24,7 @@ from . import condensation, convection, longwave, shortwave
 from . import sppt as sppt_mod
 from . import surface as surface_mod
 from . import vertical_diffusion as vdif_mod
+from ..axes import level, per_level
 from .humidity import spec_hum_to_rel_hum
 from .shortwave import RadiationState
 
@@ -157,8 +158,10 @@ def grid_physics_core(cfg: ModelConfig, pp: PhysicsParams,
     """The column-local physics chain (physics.f90:43-205): humidity ->
     convection -> LSC -> [SW clouds + fluxes] -> LW down -> surface fluxes
     -> LW up -> vertical diffusion + flux injection. Inputs are
-    [kx, il, ix], [il, ix], [il, 1] or [il]; on non-SW steps pass the
-    carried RadiationState fields (tau2_in..ssrd_in).
+    [..., kx, il, ix], [..., il, ix], [il, 1] or [il]; the leading
+    dimensions (an ensemble's members) batch through, and inputs without
+    them are shared by all members. On non-SW steps pass the carried
+    RadiationState fields (tau2_in..ssrd_in).
 
     Returns (utend, vtend, ttend, qtend, precnv, precls, cbmf, slrd, slr,
     olr, sfc[, tau2, stratc, tt_rsw, ssrd, ssr, tsr if compute_sw]).
@@ -173,13 +176,13 @@ def grid_physics_core(cfg: ModelConfig, pp: PhysicsParams,
     rps = 1.0 / psg
     qg = torch.clamp(qg, min=0.0)
     se = CP * tg + phig
-    rh, qsat = spec_hum_to_rel_hum(tg, psg[None], lev(fsg), qg)
+    rh, qsat = spec_hum_to_rel_hum(tg, per_level(psg), lev(fsg), qg)
 
     # precipitation (physics.f90:124-138)
     itop, cbmf, precnv, dfse, dfqa = convection.convection(
         fsg, dhs, pp.wvi2, psg, se, qg, qsat)
-    tt_cnv = dfse * rps[None] * grdscp
-    qt_cnv = dfqa * rps[None] * grdsig
+    tt_cnv = dfse * per_level(rps) * grdscp
+    qt_cnv = dfqa * per_level(rps) * grdsig
     icnv = kx - itop
 
     itop, precls, tt_lsc, qt_lsc = condensation.large_scale_condensation(
@@ -190,14 +193,15 @@ def grid_physics_core(cfg: ModelConfig, pp: PhysicsParams,
 
     # radiation (physics.f90:144-186)
     if compute_sw:
-        gse = (se[kx - 2] - se[kx - 1]) / (phig[kx - 2] - phig[kx - 1])
+        gse = ((level(se, kx - 2) - level(se, kx - 1))
+               / (level(phig, kx - 2) - level(phig, kx - 1)))
         icltop, cloudc, clstr, qcloud = shortwave.clouds(
             qg, rh, precnv, precls, itop, gse, fmask_l)
         (ssrd, ssr, tsr, dfabs_sw, tau2,
          stratc) = shortwave.shortwave_rad_fluxes(
             fsg, dhs, fsol, ozupp, ozone, zenit, stratz, albsfc, psg, qg,
             icltop, cloudc, clstr, qcloud, ablco2)
-        tt_rsw = dfabs_sw * rps[None] * grdscp
+        tt_rsw = dfabs_sw * per_level(rps) * grdscp
     else:
         tau2, stratc, tt_rsw, ssrd = tau2_in, stratc_in, tt_rsw_in, ssrd_in
 
@@ -211,9 +215,9 @@ def grid_physics_core(cfg: ModelConfig, pp: PhysicsParams,
         psg, ug, vg, tg, qg, rh, phig, phis0, fmask_l, sst_am, ssrd, slrd)
 
     slr, olr, dfabs_lw = longwave.upward_longwave_vec(
-        dhs, tau2, stratc, tg, sfc.tsfc, slrd, sfc.slru[2], st4a1, st4a2,
-        lwflux, dfabs_lw)
-    tt_rlw = dfabs_lw * rps[None] * grdscp
+        dhs, tau2, stratc, tg, sfc.tsfc, slrd, level(sfc.slru, 2), st4a1,
+        st4a2, lwflux, dfabs_lw)
+    tt_rlw = dfabs_lw * per_level(rps) * grdscp
     ttend = ttend + tt_rsw + tt_rlw
 
     # PBL: vertical diffusion + surface-flux injection (physics.f90:192-205)
@@ -222,10 +226,10 @@ def grid_physics_core(cfg: ModelConfig, pp: PhysicsParams,
     g_k, c_k = float(pp.grdsig[kx - 1]), float(pp.grdscp[kx - 1])
     utend = torch.zeros_like(ttend)
     vtend = torch.zeros_like(ttend)
-    utend[kx - 1] = sfc.ustr[2] * rps * g_k
-    vtend[kx - 1] = sfc.vstr[2] * rps * g_k
-    tt_pbl[kx - 1] += sfc.shf[2] * rps * c_k
-    qt_pbl[kx - 1] += sfc.evap[2] * rps * g_k
+    utend[..., kx - 1, :, :] = level(sfc.ustr, 2) * rps * g_k
+    vtend[..., kx - 1, :, :] = level(sfc.vstr, 2) * rps * g_k
+    tt_pbl[..., kx - 1, :, :] += level(sfc.shf, 2) * rps * c_k
+    qt_pbl[..., kx - 1, :, :] += level(sfc.evap, 2) * rps * g_k
     ttend = ttend + tt_pbl
     qtend = qtend + qt_pbl
 

@@ -9,6 +9,7 @@ import numpy as np
 import torch
 
 from ...constants import ALHC, CP, GRAV, P0
+from ..axes import per_level
 
 TRLSC = 4.0    # relaxation time (h)
 RHLSC = 0.9    # RH threshold at sigma=1
@@ -31,7 +32,7 @@ def large_scale_condensation(fsg: np.ndarray, dhs: np.ndarray,
                              qsat: torch.Tensor, itop: torch.Tensor
                              ) -> Tuple[torch.Tensor, ...]:
     """-> (itop, precls, dtlsc, dqlsc) (lsc f90:33-95)."""
-    kx = qa.shape[0]
+    kx = qa.shape[-3]
     tfact = ALHC / CP
     prg = P0 / GRAV
     psa2 = psa * psa
@@ -41,17 +42,19 @@ def large_scale_condensation(fsg: np.ndarray, dhs: np.ndarray,
 
     dqa = lev(rhref) * qsat - qa
     cond = dqa < 0.0
-    cond[0] = False  # level 1 excluded (loops start at k=2)
+    cond[..., 0, :, :] = False  # level 1 excluded (loops start at k=2)
     zero = torch.zeros_like(qa)
     dqlsc = torch.where(cond, dqa * RTLSC, zero)
     dtlsc = torch.where(
-        cond, tfact * torch.minimum(-dqlsc, lev(dqmax) * psa2), zero)
+        cond, tfact * torch.minimum(-dqlsc, lev(dqmax) * per_level(psa2)),
+        zero)
 
     # cloud top: min(lowest condensing level, itop), 1-based
     k1b = torch.arange(1, kx + 1, dtype=torch.int32,
                        device=qa.device)[:, None, None]
-    ktop = torch.where(cond, k1b, kx + 1).amin(dim=0)
+    ktop = torch.where(cond, k1b, kx + 1).amin(dim=-3)
     itop = torch.minimum(ktop, itop)
 
-    precls = -torch.sum(lev(dhs[1:] * prg) * dqlsc[1:], dim=0) * psa
+    precls = -torch.sum(lev(dhs[1:] * prg) * dqlsc[..., 1:, :, :],
+                        dim=-3) * psa
     return itop, precls, dtlsc, dqlsc

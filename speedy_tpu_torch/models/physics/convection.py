@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from ...constants import ALHC, GRAV, P0
+from ..axes import level as L
 
 PSMIN = 0.8    # minimum normalized ps for convection
 TRCNV = 6.0    # relaxation time (h)
@@ -36,14 +37,14 @@ def cloud_base_mass_flux_scale(dhs: np.ndarray) -> float:
 
 def diagnose_convection(wvi2: np.ndarray, psa, se, qa, qsat
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """-> (itop [il,ix] 1-based int32, qdif) (convection.f90:170-245)."""
-    kx = se.shape[0]
+    """-> (itop [..., il, ix] 1-based int32, qdif) (convection.f90:170-245)."""
+    kx = se.shape[-3]
     nl1 = kx - 1
 
     mss = se + ALHC * qsat
-    mse0 = se[kx - 1] + ALHC * qa[kx - 1]
-    mse1 = torch.minimum(mse0, se[nl1 - 1] + ALHC * qa[nl1 - 1])
-    mss0 = torch.maximum(mse0, mss[kx - 1])
+    mse0 = L(se, kx - 1) + ALHC * L(qa, kx - 1)
+    mse1 = torch.minimum(mse0, L(se, nl1 - 1) + ALHC * L(qa, nl1 - 1))
+    mss0 = torch.maximum(mse0, L(mss, kx - 1))
 
     ktop1 = torch.full_like(psa, float(kx))
     ktop2 = torch.full_like(psa, float(kx))
@@ -52,16 +53,16 @@ def diagnose_convection(wvi2: np.ndarray, psa, se, qa, qsat
     # level and its mss2 win (the reference's downward loop keeps the last)
     for k in range(3, kx - 2):
         k0 = k - 1
-        mss2 = mss[k0] + float(wvi2[k0]) * (mss[k0 + 1] - mss[k0])
+        mss2 = L(mss, k0) + float(wvi2[k0]) * (L(mss, k0 + 1) - L(mss, k0))
         ktop1 = torch.where((mss0 > mss2) & (ktop1 > k),
                             torch.full_like(ktop1, float(k)), ktop1)
         take = (mse1 > mss2) & (ktop2 > k)
         msthr = torch.where(take, mss2, msthr)
         ktop2 = torch.where(take, torch.full_like(ktop2, float(k)), ktop2)
 
-    qthr0 = RHBL * qsat[kx - 1]
-    qthr1 = RHBL * qsat[nl1 - 1]
-    lqthr = (qa[kx - 1] > qthr0) & (qa[nl1 - 1] > qthr1)
+    qthr0 = RHBL * L(qsat, kx - 1)
+    qthr1 = RHBL * L(qsat, nl1 - 1)
+    lqthr = (L(qa, kx - 1) > qthr0) & (L(qa, nl1 - 1) > qthr1)
 
     base_ok = (psa > PSMIN) & (ktop1 < kx)
     conv_deep = base_ok & (ktop2 < kx)
@@ -72,8 +73,8 @@ def diagnose_convection(wvi2: np.ndarray, psa, se, qa, qsat
     zero = torch.zeros_like(psa)
     qdif = torch.where(
         conv_deep,
-        torch.maximum(qa[kx - 1] - qthr0, (mse0 - msthr) / ALHC),
-        torch.where(conv_rh, qa[kx - 1] - qthr0, zero))
+        torch.maximum(L(qa, kx - 1) - qthr0, (mse0 - msthr) / ALHC),
+        torch.where(conv_rh, L(qa, kx - 1) - qthr0, zero))
     return itop, qdif
 
 
@@ -84,7 +85,7 @@ def convection(fsg: np.ndarray, dhs: np.ndarray, wvi2: np.ndarray,
     dfse/dfqa are net fluxes per layer, unscaled (the caller applies
     rps*grdscp / rps*grdsig, physics.f90:127-130).
     """
-    kx = se.shape[0]
+    kx = se.shape[-3]
     nl1 = kx - 1
     fm0 = cloud_base_mass_flux_scale(dhs)
     rdps = 2.0 / (1.0 - PSMIN)
@@ -98,23 +99,23 @@ def convection(fsg: np.ndarray, dhs: np.ndarray, wvi2: np.ndarray,
     dfqa = torch.zeros_like(se)
 
     # 3.1 boundary layer / cloud base (1-based k = kx)
-    qmax = torch.maximum(1.01 * qa[kx - 1], qsat[kx - 1])
+    qmax = torch.maximum(1.01 * L(qa, kx - 1), L(qsat, kx - 1))
     w = float(wvi2[nl1 - 1])
-    sb = se[nl1 - 1] + w * (se[kx - 1] - se[nl1 - 1])
-    qb = qa[nl1 - 1] + w * (qa[kx - 1] - qa[nl1 - 1])
-    qb = torch.minimum(qb, qa[kx - 1])
+    sb = L(se, nl1 - 1) + w * (L(se, kx - 1) - L(se, nl1 - 1))
+    qb = L(qa, nl1 - 1) + w * (L(qa, kx - 1) - L(qa, nl1 - 1))
+    qb = torch.minimum(qb, L(qa, kx - 1))
     fpsa = psa * torch.clamp((psa - PSMIN) * rdps, max=1.0)
     fmass0 = fm0 * fpsa * torch.clamp(
         qdif / torch.clamp(qmax - qb, min=1e-30), max=FQMAX)
     cbmf = torch.where(conv, fmass0, zero)
 
     fmass = cbmf
-    fus = cbmf * se[kx - 1]
+    fus = cbmf * L(se, kx - 1)
     fuq = cbmf * qmax
     fds = cbmf * sb
     fdq = cbmf * qb
-    dfse[kx - 1] = torch.where(conv, fds - fus, zero)
-    dfqa[kx - 1] = torch.where(conv, fdq - fuq, zero)
+    dfse[..., kx - 1, :, :] = torch.where(conv, fds - fus, zero)
+    dfqa[..., kx - 1, :, :] = torch.where(conv, fdq - fuq, zero)
 
     # 3.2 intermediate layers, downward k = kx-1 .. 2 (1-based)
     precnv = zero
@@ -123,34 +124,36 @@ def convection(fsg: np.ndarray, dhs: np.ndarray, wvi2: np.ndarray,
         mid = conv & (k >= itop + 1)
         top = conv & (k == itop)
 
-        dfse[k0] += torch.where(mid, fus - fds, zero)
-        dfqa[k0] += torch.where(mid, fuq - fdq, zero)
+        dfse[..., k0, :, :] += torch.where(mid, fus - fds, zero)
+        dfqa[..., k0, :, :] += torch.where(mid, fuq - fdq, zero)
 
         enmass = float(entr[k - 2]) * psa * cbmf
         fmass_n = fmass + enmass
-        fus_n = fus + enmass * se[k0]
-        fuq_n = fuq + enmass * qa[k0]
+        fus_n = fus + enmass * L(se, k0)
+        fuq_n = fuq + enmass * L(qa, k0)
         wk = float(wvi2[k0 - 1])
-        sb_k = se[k0 - 1] + wk * (se[k0] - se[k0 - 1])
-        qb_k = qa[k0 - 1] + wk * (qa[k0] - qa[k0 - 1])
+        sb_k = L(se, k0 - 1) + wk * (L(se, k0) - L(se, k0 - 1))
+        qb_k = L(qa, k0 - 1) + wk * (L(qa, k0) - L(qa, k0 - 1))
         fds_n = fmass_n * sb_k
         fdq_n = fmass_n * qb_k
 
-        dfse[k0] += torch.where(mid, fds_n - fus_n, zero)
-        dfqa[k0] += torch.where(mid, fdq_n - fuq_n, zero)
+        dfse[..., k0, :, :] += torch.where(mid, fds_n - fus_n, zero)
+        dfqa[..., k0, :, :] += torch.where(mid, fdq_n - fuq_n, zero)
 
         # secondary moisture flux (convection.f90:136-142)
-        delq = RHIL * qsat[k0] - qa[k0]
+        delq = RHIL * L(qsat, k0) - L(qa, k0)
         fsq = torch.where(mid & (delq > 0.0), SMF * cbmf * delq, zero)
-        dfqa[k0] += fsq
-        dfqa[kx - 1] += -fsq
+        dfqa[..., k0, :, :] += fsq
+        dfqa[..., kx - 1, :, :] += -fsq
 
         # 3.3 top layer: condensation and detrainment
-        qsatb = qsat[k0] + float(wvi2[k0]) * (qsat[k0 + 1] - qsat[k0])
+        qsatb = L(qsat, k0) + float(wvi2[k0]) * (L(qsat, k0 + 1)
+                                                 - L(qsat, k0))
         prec_k = torch.clamp(fuq - fmass * qsatb, min=0.0)
         precnv = torch.where(top, prec_k, precnv)
-        dfse[k0] += torch.where(top, fus - fds + ALHC * prec_k, zero)
-        dfqa[k0] += torch.where(top, fuq - fdq - prec_k, zero)
+        dfse[..., k0, :, :] += torch.where(top, fus - fds + ALHC * prec_k,
+                                           zero)
+        dfqa[..., k0, :, :] += torch.where(top, fuq - fdq - prec_k, zero)
 
         fmass = torch.where(mid, fmass_n, fmass)
         fus = torch.where(mid, fus_n, fus)

@@ -13,6 +13,8 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from ..axes import level as L, levels, per_level
+
 SOLC = 342.0
 RHCL1, RHCL2 = 0.30, 1.00
 QACL = 0.20
@@ -43,7 +45,8 @@ EMISFC = 0.98  # mod_radcon.f90:27
 
 
 class RadiationState(NamedTuple):
-    """Radiation fields carried between steps."""
+    """Radiation fields carried between steps (an ensemble's with a
+    leading member axis)."""
     tau2: torch.Tensor    # [4, kx, il, ix] LW transmissivities
     stratc: torch.Tensor  # [2, il, ix] stratospheric correction
     tt_rsw: torch.Tensor  # [kx, il, ix] SW heating (scaled)
@@ -106,21 +109,21 @@ def zonal_average_fields(sia: np.ndarray, coa: np.ndarray, tyear: float
 
 def clouds(qa, rh, precnv, precls, iptop, gse, fmask_l
            ) -> Tuple[torch.Tensor, ...]:
-    """-> (icltop [il,ix] 1-based int32, cloudc, clstr, qcloud)
+    """-> (icltop [..., il, ix] 1-based int32, cloudc, clstr, qcloud)
     (shortwave_radiation.f90:332-410)."""
-    kx = qa.shape[0]
+    kx = qa.shape[-3]
     nl1 = kx - 1
     rrcl = 1.0 / (RHCL2 - RHCL1)
     zero = torch.zeros_like(precnv)
 
-    above = rh[nl1 - 1] > RHCL1
-    cloudc = torch.where(above, rh[nl1 - 1] - RHCL1, zero)
+    above = L(rh, nl1 - 1) > RHCL1
+    cloudc = torch.where(above, L(rh, nl1 - 1) - RHCL1, zero)
     icltop = torch.where(above, float(nl1), float(kx + 1)).to(qa.dtype)
 
     for k in range(3, kx - 1):  # 1-based k = 3..kx-2
         k0 = k - 1
-        drh = rh[k0] - RHCL1
-        take = (drh > cloudc) & (qa[k0] > QACL)
+        drh = L(rh, k0) - RHCL1
+        take = (drh > cloudc) & (L(qa, k0) > QACL)
         cloudc = torch.where(take, drh, cloudc)
         icltop = torch.where(take, float(k), icltop)
 
@@ -130,13 +133,13 @@ def clouds(qa, rh, precnv, precls, iptop, gse, fmask_l
         + torch.clamp(cloudc * rrcl, max=1.0) ** 2, max=1.0)
     icltop = torch.minimum(iptop.to(cloudc.dtype), icltop)
 
-    qcloud = qa[nl1 - 1]
+    qcloud = L(qa, nl1 - 1)
 
     clfact = 1.2
     rgse = 1.0 / (GSE_S1 - GSE_S0)
     fstab = torch.clamp(rgse * (gse - GSE_S0), 0.0, 1.0)
     clstr = fstab * torch.clamp(CLSMAX - clfact * cloudc, min=0.0)
-    clstrl = torch.clamp(clstr, min=CLSMINL) * rh[kx - 1]
+    clstrl = torch.clamp(clstr, min=CLSMINL) * L(rh, kx - 1)
     clstr = clstr + fmask_l * (clstrl - clstr)
     return icltop.to(torch.int32), cloudc, clstr, qcloud
 
@@ -148,7 +151,7 @@ def shortwave_rad_fluxes(fsg: np.ndarray, dhs: np.ndarray,
     """-> (ssrd, ssr, tsr, dfabs, tau2, stratc)
     (shortwave_radiation.f90:74-234); tau2 holds the LONGWAVE
     transmissivities for the following LW computations."""
-    kx = qa.shape[0]
+    kx = qa.shape[-3]
     nl1 = kx - 1
     fband2 = 0.05
     fband1 = 1.0 - fband2
@@ -163,25 +166,25 @@ def shortwave_rad_fluxes(fsg: np.ndarray, dhs: np.ndarray,
     acloud = cloudc * torch.clamp(ABSCL1 * qcloud, max=ABSCL2)
 
     abs1 = ABSDRY + ABSAER * fsg**2
-    in_cloud = k1b >= icltop[None]
-    tau_1 = torch.exp(-psaz[None] * lev(dhs)
+    in_cloud = k1b >= per_level(icltop)
+    tau_1 = torch.exp(-per_level(psaz) * lev(dhs)
                       * (lev(abs1) + ABSWV1 * qa
-                         + torch.where(in_cloud, acloud[None],
+                         + torch.where(in_cloud, per_level(acloud),
                                        torch.zeros_like(qa))))
     # k=1: dry only; k=kx: no cloud term
-    tau_1[0] = torch.exp(-psaz * float(dhs[0]) * ABSDRY)
-    tau_1[kx - 1] = torch.exp(-psaz * float(dhs[kx - 1])
-                              * (float(abs1[kx - 1]) + ABSWV1 * qa[kx - 1]))
-    tau_2 = torch.exp(-psaz[None] * lev(dhs) * ABSWV2 * qa)
+    tau_1[..., 0, :, :] = torch.exp(-psaz * float(dhs[0]) * ABSDRY)
+    tau_1[..., kx - 1, :, :] = torch.exp(
+        -psaz * float(dhs[kx - 1])
+        * (float(abs1[kx - 1]) + ABSWV1 * L(qa, kx - 1)))
+    tau_2 = torch.exp(-per_level(psaz) * lev(dhs) * ABSWV2 * qa)
 
     # cloud reflection (tau2 band 3)
-    refl = torch.where(k1b == icltop[None], ALBCL * cloudc[None],
+    refl = torch.where(k1b == per_level(icltop), ALBCL * per_level(cloudc),
                        torch.zeros_like(qa))
-    refl[kx - 1] += ALBCLS * clstr
+    refl[..., kx - 1, :, :] += ALBCLS * clstr
     # if icltop == kx the reference overwrites with the stratiform term
-    refl[kx - 1] = torch.where(icltop == kx,
-                               ALBCL * cloudc * 0.0 + ALBCLS * clstr,
-                               refl[kx - 1])
+    refl[..., kx - 1, :, :] = torch.where(
+        icltop == kx, ALBCL * cloudc * 0.0 + ALBCLS * clstr, L(refl, kx - 1))
 
     # downward pass
     dfabs = [None] * kx
@@ -190,24 +193,24 @@ def shortwave_rad_fluxes(fsg: np.ndarray, dhs: np.ndarray,
     flux2 = fsol * fband2
 
     d = flux1
-    flux1 = tau_1[0] * (flux1 - ozupp * psa)
+    flux1 = L(tau_1, 0) * (flux1 - ozupp * psa)
     dfabs[0] = d - flux1
     d = flux1
-    flux1 = tau_1[1] * (flux1 - ozone * psa)
+    flux1 = L(tau_1, 1) * (flux1 - ozone * psa)
     dfabs[1] = d - flux1
 
     refl_flux = [zero, zero]
     for k0 in range(2, kx):
-        rk = flux1 * refl[k0]
+        rk = flux1 * L(refl, k0)
         refl_flux.append(rk)
         flux1 = flux1 - rk
         d = flux1
-        flux1 = tau_1[k0] * flux1
+        flux1 = L(tau_1, k0) * flux1
         dfabs[k0] = d - flux1
 
     for k0 in range(1, kx):
         dfabs[k0] = dfabs[k0] + flux2
-        flux2 = tau_2[k0] * flux2
+        flux2 = L(tau_2, k0) * flux2
         dfabs[k0] = dfabs[k0] - flux2
 
     # surface and upward pass
@@ -217,30 +220,33 @@ def shortwave_rad_fluxes(fsg: np.ndarray, dhs: np.ndarray,
 
     for k0 in range(kx - 1, -1, -1):
         dfabs[k0] = dfabs[k0] + flux1
-        flux1 = tau_1[k0] * flux1
+        flux1 = L(tau_1, k0) * flux1
         dfabs[k0] = dfabs[k0] - flux1
         flux1 = flux1 + refl_flux[k0]
 
     tsr = tsr - flux1
-    dfabs = torch.stack(dfabs, dim=0)
+    dfabs = torch.stack(dfabs, dim=-3)
 
     # LW transmissivity initialization (shortwave_radiation.f90:190-228)
-    dp = psa[None] * lev(dhs)
+    dp = per_level(psa) * lev(dhs)
     lw1 = torch.exp(-dp * ABLWIN)
     lw2 = torch.exp(-dp * ablco2)
     lw3 = torch.exp(-dp * ABLWV1 * qa)
     lw4 = torch.exp(-dp * ABLWV2 * qa)
-    lw3[0] = 1.0   # stratosphere: no water vapour bands
-    lw4[0] = 1.0
+    lw3[..., 0, :, :] = 1.0   # stratosphere: no water vapour bands
+    lw4[..., 0, :, :] = 1.0
     # cloudy free troposphere (1-based k = 3..kx-1)
-    aclw = (cloudc * ABLCL2)[None]
-    acl1 = torch.where(k1b < icltop[None], aclw, ABLCL1 * cloudc[None])
-    mid = slice(2, nl1)
-    lw1[mid] = torch.exp(-dp[mid] * (ABLWIN + acl1[mid]))
-    lw3[mid] = torch.exp(-dp[mid] * torch.maximum(ABLWV1 * qa[mid], aclw))
-    lw4[mid] = torch.exp(-dp[mid] * torch.maximum(ABLWV2 * qa[mid], aclw))
-    tau2 = torch.stack([lw1, lw2, lw3, lw4], dim=0)
+    aclw = per_level(cloudc * ABLCL2)
+    acl1 = torch.where(k1b < per_level(icltop), aclw,
+                       ABLCL1 * per_level(cloudc))
+    mid = lambda x: levels(x, 2, nl1)
+    lw1[..., 2:nl1, :, :] = torch.exp(-mid(dp) * (ABLWIN + mid(acl1)))
+    lw3[..., 2:nl1, :, :] = torch.exp(
+        -mid(dp) * torch.maximum(ABLWV1 * mid(qa), aclw))
+    lw4[..., 2:nl1, :, :] = torch.exp(
+        -mid(dp) * torch.maximum(ABLWV2 * mid(qa), aclw))
+    tau2 = torch.stack([lw1, lw2, lw3, lw4], dim=-4)
 
     eps1 = float(EPSLW / (dhs[0] + dhs[1]))
-    stratc = torch.stack([stratz * psa, eps1 * psa], dim=0)
+    stratc = torch.stack([stratz * psa, eps1 * psa], dim=-3)
     return ssrd, ssr, tsr, dfabs, tau2, stratc

@@ -13,10 +13,17 @@ A caller may instead pass ``noise``, a callable ``noise(shape)`` returning
 standard-normal draws (any array type), which then supplies every
 innovation in order: the parity tests feed the JAX key chain's draws
 through it, chip_smoke.py a numpy seed.
+
+An ensemble's state (``stack_states``) has a member axis in front of
+``spec`` and one generator per member: member i is seeded on its own and
+its draws depend only on its seed, never on the number of members, at the
+cost of one small ``randn`` per member and update. Its ``noise`` is either
+one source for the whole [M, ...] draw or a sequence of M sources, one per
+member.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -28,12 +35,15 @@ TIME_DECORR = 6.0        # decorrelation time (h)
 LEN_DECORR = 500000.0    # decorrelation length (m)
 STDDEV = 0.33            # grid-point standard deviation
 
-Noise = Optional[Callable[[tuple], object]]
+Source = Callable[[tuple], object]
+Noise = Optional[Union[Source, Sequence[Source]]]
 
 
 class SpptState(NamedTuple):
-    spec: torch.Tensor           # [kx, mx, nx, 2] AR(1) spectral state
-    generator: torch.Generator   # draws the next innovations
+    spec: torch.Tensor    # [..., kx, mx, nx, 2] AR(1) spectral state
+    # draws the next innovations: a torch.Generator, or a tuple of one per
+    # member in an ensemble
+    generator: Union[torch.Generator, Tuple[torch.Generator, ...]]
 
 
 def sppt_sigma(cfg, el2: np.ndarray) -> np.ndarray:
@@ -51,18 +61,36 @@ def sppt_phi(cfg) -> float:
     return float(np.exp(-(24.0 / cfg.nsteps) / TIME_DECORR))
 
 
-def _innovations(shape, like: torch.Tensor, generator: torch.Generator,
-                 noise: Noise) -> Tuple[torch.Tensor, torch.Generator]:
-    """Clipped standard-normal draws of ``shape`` in ``like``'s dtype and
-    device, and the generator to carry on with (a copy advanced past the
-    draws; the given one is left as it was)."""
+def _draw(shape, like: torch.Tensor, generator: torch.Generator,
+          noise: Optional[Source]) -> Tuple[torch.Tensor, torch.Generator]:
+    """Standard-normal draws of ``shape`` from ``noise`` where given, else
+    from a copy of ``generator``, returned advanced past the draws."""
     if noise is not None:
-        eta = torch.as_tensor(np.array(noise(tuple(shape))),
-                              dtype=like.dtype, device=like.device)
+        return torch.as_tensor(np.array(noise(tuple(shape))),
+                               dtype=like.dtype, device=like.device), generator
+    generator = _copy(generator)
+    return torch.randn(shape, generator=generator, dtype=like.dtype,
+                       device=like.device), generator
+
+
+def _innovations(shape, like: torch.Tensor, generator, noise: Noise
+                 ) -> Tuple[torch.Tensor, object]:
+    """Clipped standard-normal draws of ``shape`` in ``like``'s dtype and
+    device, and the generator(s) to carry on with (copies advanced past
+    the draws; the given ones are left as they were). With a tuple of
+    generators (an ensemble) ``shape`` leads with the member axis and each
+    member draws its own slice."""
+    if isinstance(generator, tuple) and not callable(noise):
+        sources = noise if noise is not None else [None] * len(generator)
+        if len(sources) != len(generator):
+            raise ValueError(f"{len(sources)} noise sources for "
+                             f"{len(generator)} members")
+        draws = [_draw(shape[1:], like, g, n)
+                 for g, n in zip(generator, sources)]
+        eta = torch.stack([d for d, _ in draws])
+        generator = tuple(g for _, g in draws)
     else:
-        generator = _copy(generator)
-        eta = torch.randn(shape, generator=generator, dtype=like.dtype,
-                          device=like.device)
+        eta, generator = _draw(shape, like, generator, noise)
     return torch.clamp(eta, -10.0, 10.0), generator
 
 
@@ -73,7 +101,7 @@ def _copy(generator: torch.Generator) -> torch.Generator:
 
 
 def init_sppt_state(cfg, sigma: torch.Tensor, seed: int = 0,
-                    noise: Noise = None) -> SpptState:
+                    noise: Optional[Source] = None) -> SpptState:
     """Stationary-distribution initialization of the AR(1) state on
     ``sigma``'s device."""
     generator = torch.Generator(device=sigma.device).manual_seed(seed)
@@ -82,6 +110,12 @@ def init_sppt_state(cfg, sigma: torch.Tensor, seed: int = 0,
     phi = sppt_phi(cfg)
     spec = (1 - phi**2) ** (-0.5) * sigma[:, :, None] * eta
     return SpptState(spec=spec, generator=generator)
+
+
+def stack_states(states: Sequence[SpptState]) -> SpptState:
+    """An ensemble's SPPT state from its members' states."""
+    return SpptState(spec=torch.stack([s.spec for s in states]),
+                     generator=tuple(s.generator for s in states))
 
 
 def sppt_ar1(cfg, sigma: torch.Tensor, state: SpptState,
@@ -99,7 +133,7 @@ def gen_sppt(cfg, sc: sp.SpectralConsts, sigma: torch.Tensor,
              state: SpptState, noise: Noise = None
              ) -> Tuple[torch.Tensor, SpptState]:
     """AR(1) update and its grid pattern clipped to [-1, 1]
-    (sppt.f90:45-99): ([kx, il, ix] pattern, new state). Used by the
+    (sppt.f90:45-99): ([..., kx, il, ix] pattern, new state). Used by the
     leapfrog bootstrap, with a transform of its own."""
     spec, state = sppt_ar1(cfg, sigma, state, noise)
     grid = torch.clamp(sp.spec_to_grid(sc, spec), -1.0, 1.0)

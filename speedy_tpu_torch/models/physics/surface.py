@@ -1,6 +1,6 @@
 """Surface fluxes of momentum, energy and moisture, with the implicit land
 skin-temperature update (source/surface_fluxes.f90). The land/sea/blend
-triples are stacked [3, il, ix] in that order."""
+triples are stacked [..., 3, il, ix] in that order."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -9,6 +9,7 @@ import numpy as np
 import torch
 
 from ...constants import ALHC, CP, GRAV, P0, RGAS, SBC
+from ..axes import level as L
 from .shortwave import EMISFC
 from .humidity import get_qsat
 
@@ -28,7 +29,8 @@ CLAMBSN = 7.0
 
 
 class SurfaceFluxes(NamedTuple):
-    """_l = land, _s = sea, _w = blend (auxiliaries.f90:15-33)."""
+    """_l = land, _s = sea, _w = blend (auxiliaries.f90:15-33); an
+    ensemble's with a leading member axis."""
     ustr: torch.Tensor   # [3, il, ix]
     vstr: torch.Tensor   # [3, il, ix]
     shf: torch.Tensor    # [3, il, ix]
@@ -53,26 +55,26 @@ def surface_fluxes(wvi2_kx: float, sigl_kx: float, forog, coa,
                    psa, ua, va, ta, qa, rh, phi, phi0, fmask_l, tsea,
                    ssrd, slrd) -> SurfaceFluxes:
     """Full land+sea pass (surface_fluxes.f90:42-296). ua..phi are
-    [kx, il, ix], coa is [il], the others [il, ix]."""
-    kx = ta.shape[0]
+    [..., kx, il, ix], coa is [il], the others [..., il, ix]."""
+    kx = ta.shape[-3]
     nl1 = kx - 1
     esbc = EMISFC * SBC
     coa2 = coa[:, None]
 
     # 1. near-surface extrapolation
-    u0 = FWIND0 * ua[kx - 1]
-    v0 = FWIND0 * va[kx - 1]
+    u0 = FWIND0 * L(ua, kx - 1)
+    v0 = FWIND0 * L(va, kx - 1)
 
-    dt1 = wvi2_kx * (ta[kx - 1] - ta[nl1 - 1])
-    t1_l = ta[kx - 1] + dt1
+    dt1 = wvi2_kx * (L(ta, kx - 1) - L(ta, nl1 - 1))
+    t1_l = L(ta, kx - 1) + dt1
     t1_s = t1_l - phi0 * dt1 / (RGAS * 288.0 * sigl_kx)
-    t2_s = ta[kx - 1] + phi[kx - 1] / CP
+    t2_s = L(ta, kx - 1) + L(phi, kx - 1) / CP
     t2_l = t2_s - phi0 / CP
 
-    lapse_neg = ta[kx - 1] > ta[nl1 - 1]
+    lapse_neg = L(ta, kx - 1) > L(ta, nl1 - 1)
     gtemp0 = 1.0 - FTEMP0
-    t1_l = torch.where(lapse_neg, FTEMP0 * t1_l + gtemp0 * t2_l, ta[kx - 1])
-    t1_s = torch.where(lapse_neg, FTEMP0 * t1_s + gtemp0 * t2_s, ta[kx - 1])
+    t1_l = torch.where(lapse_neg, FTEMP0 * t1_l + gtemp0 * t2_l, L(ta, kx - 1))
+    t1_s = torch.where(lapse_neg, FTEMP0 * t1_s + gtemp0 * t2_s, L(ta, kx - 1))
     t0 = t1_s + fmask_l * (t1_l - t1_s)
 
     denvvs0 = (P0 * psa / (RGAS * t0)) * torch.sqrt(
@@ -89,13 +91,13 @@ def surface_fluxes(wvi2_kx: float, sigl_kx: float, forog, coa,
     denvvs1 = denvvs0 * (1.0 + dthl * rdth)
 
     cdldv = CDL * denvvs0 * forog
-    ustr_l = -cdldv * ua[kx - 1]
-    vstr_l = -cdldv * va[kx - 1]
+    ustr_l = -cdldv * L(ua, kx - 1)
+    vstr_l = -cdldv * L(va, kx - 1)
 
     chlcp = CHL * CP
     shf_l = chlcp * denvvs1 * (tskin - t1_l)
 
-    q1_l = qa[kx - 1]
+    q1_l = L(qa, kx - 1)
     qsat_skin = get_qsat(tskin, psa, 1.0)
     evap_l = CHL * denvvs1 * torch.clamp(soilw_am * qsat_skin - q1_l,
                                          min=0.0)
@@ -123,11 +125,11 @@ def surface_fluxes(wvi2_kx: float, sigl_kx: float, forog, coa,
                        torch.clamp(tsea - t2_s, max=DTHETA),
                        torch.clamp(astab * (tsea - t2_s), min=-DTHETA))
     denvvs2 = denvvs0 * (1.0 + dths * rdth)
-    q1_s = qa[kx - 1]
+    q1_s = L(qa, kx - 1)
 
     cdsdv = CDS * denvvs2
-    ustr_s = -cdsdv * ua[kx - 1]
-    vstr_s = -cdsdv * va[kx - 1]
+    ustr_s = -cdsdv * L(ua, kx - 1)
+    vstr_s = -cdsdv * L(va, kx - 1)
 
     shf_s = CHS * CP * denvvs2 * (tsea - t1_s)
     evap_s = CHS * denvvs2 * (get_qsat(tsea, psa, 1.0) - q1_s)
@@ -137,13 +139,13 @@ def surface_fluxes(wvi2_kx: float, sigl_kx: float, forog, coa,
 
     # 5. land/sea blend (surface_fluxes.f90:285-295)
     def trio(a_l, a_s):
-        return torch.stack([a_l, a_s, a_s + fmask_l * (a_l - a_s)], dim=0)
+        return torch.stack([a_l, a_s, a_s + fmask_l * (a_l - a_s)], dim=-3)
 
     return SurfaceFluxes(
         ustr=trio(ustr_l, ustr_s), vstr=trio(vstr_l, vstr_s),
         shf=trio(shf_l, shf_s), evap=trio(evap_l, evap_s),
         slru=trio(slru_l, slru_s),
-        hfluxn=torch.stack([hfluxn_l, hfluxn_s], dim=0),
+        hfluxn=torch.stack([hfluxn_l, hfluxn_s], dim=-3),
         tsfc=tsea + fmask_l * (stl_am - tsea),
         tskin=tsea + fmask_l * (tskin - tsea),
         u0=u0, v0=v0, t0=t0)

@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from ...constants import ALHC, CP
+from ..axes import level as L, per_level
 
 TRSHC = 6.0    # shallow-convection relaxation time (h)
 TRVDI = 24.0   # moisture-diffusion relaxation time (h)
@@ -34,13 +35,13 @@ def vdif_coefficients(dhs: np.ndarray, sigh: np.ndarray) -> dict:
 def vertical_diffusion(fsg: np.ndarray, dhs: np.ndarray, sigh: np.ndarray,
                        se, rh, qa, qsat, phi, icnv
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """-> (ttenvd, qtenvd) [kx, il, ix] (vertical_diffusion.f90:30-143);
+    """-> (ttenvd, qtenvd) [..., kx, il, ix] (vertical_diffusion.f90:30-143);
     the wind tendencies of the scheme are zero."""
-    kx = se.shape[0]
+    kx = se.shape[-3]
     nl1 = kx - 1
     c = vdif_coefficients(dhs, sigh)
     rsig, rsig1, fvdiq = c["rsig"], c["rsig1"], c["fvdiq"]
-    zero = torch.zeros_like(se[0])
+    zero = torch.zeros_like(L(se, 0))
 
     ttenvd = torch.zeros_like(se)
     qtenvd = torch.zeros_like(se)
@@ -48,22 +49,24 @@ def vertical_diffusion(fsg: np.ndarray, dhs: np.ndarray, sigh: np.ndarray,
     # 2. shallow convection (lowest two layers)
     drh0 = RHGRAD * float(fsg[kx - 1] - fsg[nl1 - 1])
     fvdiq2 = float(fvdiq * sigh[nl1])
-    dmse = se[kx - 1] - se[nl1 - 1] + ALHC * (qa[kx - 1] - qsat[nl1 - 1])
-    drh = rh[kx - 1] - rh[nl1 - 1]
+    dmse = L(se, kx - 1) - L(se, nl1 - 1) \
+        + ALHC * (L(qa, kx - 1) - L(qsat, nl1 - 1))
+    drh = L(rh, kx - 1) - L(rh, nl1 - 1)
     fcnv = torch.where(icnv > 0, REDSHC, 1.0).to(se.dtype)
 
     unstable = dmse >= 0.0
     fluxse = torch.where(unstable, fcnv * float(c["fshcse"]) * dmse, zero)
-    ttenvd[nl1 - 1] += fluxse * float(rsig[nl1 - 1])
-    ttenvd[kx - 1] += -fluxse * float(rsig[kx - 1])
+    ttenvd[..., nl1 - 1, :, :] += fluxse * float(rsig[nl1 - 1])
+    ttenvd[..., kx - 1, :, :] += -fluxse * float(rsig[kx - 1])
 
     fluxq_sc = torch.where(unstable & (drh >= 0.0),
-                           fcnv * float(c["fshcq"]) * qsat[kx - 1] * drh, zero)
+                           fcnv * float(c["fshcq"]) * L(qsat, kx - 1) * drh,
+                           zero)
     fluxq_st = torch.where((~unstable) & (drh > drh0),
-                           fvdiq2 * qsat[nl1 - 1] * drh, zero)
+                           fvdiq2 * L(qsat, nl1 - 1) * drh, zero)
     fluxq = fluxq_sc + fluxq_st
-    qtenvd[nl1 - 1] += fluxq * float(rsig[nl1 - 1])
-    qtenvd[kx - 1] += -fluxq * float(rsig[kx - 1])
+    qtenvd[..., nl1 - 1, :, :] += fluxq * float(rsig[nl1 - 1])
+    qtenvd[..., kx - 1, :, :] += -fluxq * float(rsig[kx - 1])
 
     # 3. moisture diffusion above the PBL (1-based k = 3..kx-2 where
     # sigh(k) > 0.5)
@@ -73,17 +76,18 @@ def vertical_diffusion(fsg: np.ndarray, dhs: np.ndarray, sigh: np.ndarray,
         k0 = k - 1
         drh0_k = RHGRAD * float(fsg[k0 + 1] - fsg[k0])
         fvdiq2_k = float(fvdiq * sigh[k])
-        drh_k = rh[k0 + 1] - rh[k0]
-        fq = torch.where(drh_k >= drh0_k, fvdiq2_k * qsat[k0] * drh_k, zero)
-        qtenvd[k0] += fq * float(rsig[k0])
-        qtenvd[k0 + 1] += -fq * float(rsig[k0 + 1])
+        drh_k = L(rh, k0 + 1) - L(rh, k0)
+        fq = torch.where(drh_k >= drh0_k, fvdiq2_k * L(qsat, k0) * drh_k,
+                         zero)
+        qtenvd[..., k0, :, :] += fq * float(rsig[k0])
+        qtenvd[..., k0 + 1, :, :] += -fq * float(rsig[k0 + 1])
 
     # 4. super-adiabatic lapse-rate damping (1-based k = 1..kx-1): the
     # energy is taken from all layers below k
     fvdise = float(c["fvdise"])
     for k0 in range(kx - 1):
-        se0 = se[k0 + 1] + SEGRAD * (phi[k0] - phi[k0 + 1])
-        fse = torch.where(se[k0] < se0, fvdise * (se0 - se[k0]), zero)
-        ttenvd[k0] += fse * float(rsig[k0])
-        ttenvd[k0 + 1:] += -(fse * float(rsig1[k0]))[None]
+        se0 = L(se, k0 + 1) + SEGRAD * (L(phi, k0) - L(phi, k0 + 1))
+        fse = torch.where(L(se, k0) < se0, fvdise * (se0 - L(se, k0)), zero)
+        ttenvd[..., k0, :, :] += fse * float(rsig[k0])
+        ttenvd[..., k0 + 1:, :, :] += -per_level(fse * float(rsig1[k0]))
     return ttenvd, qtenvd

@@ -1,14 +1,17 @@
 """Where one simulated day's time goes on the card.
 
     python -m speedy_tpu_torch.profile_day [--precision fp32] [--sppt]
+        [--members N]
 
 Builds the T30 model on CUDA from the stand-in boundary set, runs one warm
 day, then times one more day on the host clock (ending in a
-synchronise) and traces them with torch.profiler. Prints the wall time per
-step, the device time summed over CUDA kernels, the device's busy share,
-the number of kernel launches per step, and the kernels that take the most
-device time, with the column-physics kernel's share. ``--sppt`` runs the
-model with SPPT on. Needs a CUDA device.
+synchronise) and traces a third with torch.profiler. Prints the wall time
+per step, the device time summed over CUDA kernels, the device's busy
+share, the number of kernel launches per step, and the kernels that take
+the most device time, with the column-physics kernel's share. ``--sppt``
+runs the model with SPPT on. ``--members N`` (N > 1) runs an ensemble of N
+members (parallel.Ensemble.run_days, each member with its own SPPT seed)
+instead of one model, and adds member-days/min. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -24,6 +27,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--precision", default="fp32", choices=("fp32", "fp64"))
     ap.add_argument("--sppt", action="store_true", help="SPPT on")
+    ap.add_argument("--members", type=int, default=1,
+                    help="ensemble members (1: one model)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_day: CUDA is not available", file=sys.stderr)
@@ -38,12 +43,19 @@ def main(argv=None) -> int:
                   device="cuda",
                   bc_arrays=synthetic_boundaries(0))
     start = cal.Datetime(1982, 1, 1)
-    state = model.run_fast(start, 1)          # warm-up day
-    nsteps = model.cfg.nsteps
+    nsteps, members = model.cfg.nsteps, args.members
+    if members > 1:
+        from .parallel.ensemble import Ensemble
+        ens = Ensemble(model, members)
+        day = lambda s: ens.run_days(s, start, 1)[0]
+        state = day(ens.initialize(start))    # warm-up day
+    else:
+        day = lambda s: model.run_fast(start, 1, state=s)
+        state = model.run_fast(start, 1)      # warm-up day
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    state = model.run_fast(start, 1, state=state)
+    state = day(state)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
 
@@ -51,7 +63,7 @@ def main(argv=None) -> int:
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t1 = time.perf_counter()
-        model.run_fast(start, 1, state=state)
+        day(state)
         torch.cuda.synchronize()
         wall_prof = time.perf_counter() - t1
 
@@ -65,11 +77,13 @@ def main(argv=None) -> int:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     k1 = sum(t for name, (n, t) in by_name.items()
              if "column_physics" in name)
-    card = torch.cuda.get_device_name(0)
+    from .bench_transform import card_line
+    card = card_line()   # name and power limit
     print(f"{card}: {args.precision} T30{' SPPT' if args.sppt else ''}, "
-          f"1 day, "
+          f"{members} member{'s' if members > 1 else ''}, 1 day, "
           f"{wall / nsteps * 1e3:.3f} ms/step wall "
-          f"({60.0 / wall:.1f} sim-days/min); profiled "
+          f"({60.0 / wall:.1f} sim-days/min, "
+          f"{members * 60.0 / wall:.1f} member-days/min); profiled "
           f"{wall_prof / nsteps * 1e3:.3f} ms/step")
     if not kernels:
         print("device time: not measured (the profiler saw no CUDA kernels)")
@@ -87,6 +101,9 @@ def main(argv=None) -> int:
                       "busy_share": busy,
                       "launches_per_step": len(kernels) / nsteps,
                       "column_physics_us_per_step": k1 / nsteps,
+                      "column_physics_share": k1 / dev_us,
+                      "members": members,
+                      "member_days_per_min": members * 60.0 / wall,
                       "sppt": args.sppt, "device": card}))
     return 0
 

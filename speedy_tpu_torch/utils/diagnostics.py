@@ -12,9 +12,9 @@ from ..ops import spectral as sp
 
 
 class Diagnostics(NamedTuple):
-    reke: torch.Tensor   # [kx] rotational eddy kinetic energy
-    deke: torch.Tensor   # [kx] divergent eddy kinetic energy
-    tmean: torch.Tensor  # [kx] global-mean temperature (K)
+    reke: torch.Tensor   # [..., kx] rotational eddy kinetic energy
+    deke: torch.Tensor   # [..., kx] divergent eddy kinetic energy
+    tmean: torch.Tensor  # [..., kx] global-mean temperature (K)
 
 
 class InstabilityError(RuntimeError):
@@ -23,13 +23,14 @@ class InstabilityError(RuntimeError):
 
 def compute_diagnostics(sc: sp.SpectralConsts, vor: torch.Tensor,
                         div: torch.Tensor, t: torch.Tensor) -> Diagnostics:
-    """vor/div/t are spectral [kx, mx, nx, 2] at one time level
-    (diagnostics.f90:29-50)."""
+    """vor/div/t are spectral [..., kx, mx, nx, 2] at one time level
+    (diagnostics.f90:29-50); an ensemble's members get their own."""
     def eke(x):
         inv = sp.inverse_laplacian(sc, x)
-        return -torch.sum(inv[:, 1:] * x[:, 1:], dim=(-3, -2, -1))
+        return -torch.sum(inv[..., 1:, :, :] * x[..., 1:, :, :],
+                          dim=(-3, -2, -1))
 
-    tmean = math.sqrt(0.5) * t[:, 0, 0, 0]
+    tmean = math.sqrt(0.5) * t[..., 0, 0, 0]
     return Diagnostics(reke=eke(vor), deke=eke(div), tmean=tmean)
 
 

@@ -17,7 +17,11 @@ for, with the analysis output exactly 0 at the pairs the truncation drops
 and the synthesis output blind to its input there, and the CUDA model
 against the CPU model after
 boot + 6 fp64 steps (<= 1e-10), with SPPT off and on (the same innovations
-from a numpy seed).
+from a numpy seed). Ensembles: the column-physics kernel with 1, 8 and 64
+members as extra columns against its plain chain, each member's outputs
+equal to a one-member launch, its refusal of bad member-batched inputs, a
+2-member SPPT ensemble on CUDA against the CPU after boot + 6 fp64 steps,
+and one kernel launch a step whatever the member count.
 """
 import ctypes
 import os
@@ -30,10 +34,11 @@ import torch
 from speedy_tpu_torch import bench_physics as bp
 from speedy_tpu_torch.config import from_preset, t30
 from speedy_tpu_torch.geometry import build_geometry_np
-from speedy_tpu_torch.models.model import Model
+from speedy_tpu_torch.models.model import Model, one_step
 from speedy_tpu_torch.models.physics import fused
 from speedy_tpu_torch.ops import fused_transforms as ft
 from speedy_tpu_torch.ops import spectral as sp
+from speedy_tpu_torch.parallel.ensemble import Ensemble
 from speedy_tpu_torch.utils import calendar as cal
 from speedy_tpu_torch.utils.synthetic_bc import synthetic_boundaries
 
@@ -280,3 +285,64 @@ def test_main_path_goes_through_kernel(smoke, bc):
     m.run_fast(START, 1)
     assert fused.launches == 2 + m.cfg.nsteps
     assert fused.launches_sw == 2 + m.cfg.nsteps // m.cfg.nstrad
+
+
+@pytest.mark.parametrize("members", bp.MEMBER_COUNTS)
+@pytest.mark.parametrize("precision", ["fp64", "fp32"])
+def test_k1_members_match_plain_and_single_launches(smoke, bc, members,
+                                                    precision):
+    m = Model(t30(precision=precision), device="cuda", bc_arrays=bc)
+    for sw in (True, False):
+        _, _, rec = bp.check_members(m, sw, members)
+        rec["bound"] = bp.error_bound(m.cfg.rdtype)
+        assert bp.passed(rec), (sw, rec)
+
+
+@pytest.mark.parametrize("case", ["members", "strided", "shared_shape"])
+def test_k1_refuses_bad_member_input(smoke, bc, case):
+    m = Model(t30(), device="cuda", bc_arrays=bc)
+    ins, block = bp.physics_case(m, True)
+    ins = bp.member_inputs(ins, 4)
+    if case == "members":
+        ins[3] = ins[3][:3]
+    elif case == "strided":
+        ins[4] = ins[4].contiguous().transpose(2, 3).contiguous() \
+            .transpose(2, 3)
+    else:
+        ins[13] = ins[13][:-1]
+    fused.reset_launches()
+    with pytest.raises(ValueError):
+        fused.launch_kernel(m.cfg, True, ins, block)
+    assert fused.launches == 0
+
+
+def test_ensemble_cuda_matches_cpu(smoke, bc):
+    states = []
+    for device in ("cpu", "cuda"):
+        m = Model(t30(precision="fp64", sppt_on=True), device=device,
+                  bc_arrays=bc, sppt_noise=smoke.sppt_noise(1))
+        ens = Ensemble(m, 2, noise=[smoke.sppt_noise(2 + i)
+                                    for i in range(2)])
+        s = ens.initialize(START)
+        daily = m.daily_forcing(s, START, START)
+        for i in range(6):
+            s, _ = one_step(m.cfg, m.pp, m.lsp, m.mc, s, daily,
+                            i % m.cfg.nstrad == 0, noise=ens.noise)
+        states.append(s.prog)
+    for f in states[0]._fields:
+        a, b = getattr(states[0], f), getattr(states[1], f).cpu()
+        for k in range(2):
+            err = ((a[k] - b[k]).abs().max() / a[k].abs().max()).item()
+            assert err <= 1e-10, (f, k, err)
+
+
+@pytest.mark.parametrize("members", [1, 8])
+def test_ensemble_day_launches_once_per_step(smoke, bc, members):
+    m = Model(t30(sppt_on=True), device="cuda", bc_arrays=bc)
+    ens = Ensemble(m, members)
+    estate = ens.initialize(START)
+    fused.reset_launches()
+    estate, _ = ens.run_days(estate, START, 1)
+    assert fused.launches == m.cfg.nsteps
+    assert fused.launches_sw == m.cfg.nsteps // m.cfg.nstrad
+    assert bool(torch.isfinite(estate.prog.vor).all())

@@ -166,8 +166,7 @@ def test_model_defaults_to_cuda_and_never_falls_back(bc):
 
 @pytest.mark.parametrize("option", [dict(sea_coupling_flag=1),
                                     dict(sst_anomaly_forcing=True),
-                                    dict(lw_band_vectorized=False),
-                                    dict(n_ensemble=2)])
+                                    dict(lw_band_vectorized=False)])
 def test_unported_options_raise(bc, option):
     with pytest.raises(NotImplementedError):
         Model(t30(**option), device="cpu", bc_arrays=bc)
