@@ -17,8 +17,11 @@ Phases (each prints one line or more; any failure exits non-zero):
     plain chain's and the bound, and the kernel's share of the bound;
  4. boot + 6 steps in fp64 on the CPU (plain physics) and on CUDA (kernel):
     every prognostic field must agree;
- 5. the main path: Model(t30(), device="cuda") in fp32, initialize +
-    run_fast for 2 days with the stability guard, counting kernel launches;
+ 5. the main path: Model(t30(), device="cuda") in fp32, the day captured
+    as a CUDA graph (warm-up day and capture timed on their own), then
+    initialize + run_fast for 2 days with the stability guard (each day one
+    replay), counting kernel launches (2 in the boot, nsteps per replayed
+    day, as the captured day adds its graph's K1 launches at each replay);
  6. the transform benchmark's path (speedy_tpu_torch.bench_transform at
     T30, fp32), counting kernel launches; then the spectral-transform
     kernels (synthesis, analysis), through their public wrappers, against
@@ -29,10 +32,13 @@ Phases (each prints one line or more; any failure exits non-zero):
     kernel's share of it, and the synthesis tile picked; the analysis
     kernel's output at the pairs the truncation drops must be exactly 0;
  7. SPPT: boot + 6 fp64 steps with SPPT on, CPU against CUDA, fed the same
-    innovations from a numpy seed; then 2 fp32 days with SPPT on the card;
+    innovations from a numpy seed; then 2 fp32 days with SPPT on the card,
+    captured first as in [5];
  8. the run path: Model.run over one day with the NetCDF writer, and a
     checkpoint at day 1 resumed to day 2 against a straight 2-day run
-    (SPPT on);
+    (SPPT on); then Model.run without output over 2 days, timed (its day
+    keeps every step's diagnostics and makes no gridded fields), and that
+    day's replay and host copy in turns with the day that makes them;
  9. ensembles: (a) the column-physics kernel with an ensemble's members as
     extra columns (bench_physics.run_members: 1, 8 and 64 members at T30,
     fp64 and fp32, SW and non-SW) against its plain chain on the same
@@ -40,16 +46,34 @@ Phases (each prints one line or more; any failure exits non-zero):
     inputs, with the graph-replay time per call and per member, the bytes
     bound and the share of it; (b) a 2-member SPPT ensemble, boot + 6 fp64
     steps on the CPU and on CUDA with the same per-member innovations;
-    (c) the ensemble path: fp32 T30 with SPPT on, Ensemble.initialize +
-    run_days over 2 days at 8 and at 64 members with the stability guard
-    per member, timing the second day (member-days/min, ms/step), every
-    field finite, the members apart, and 2 x nsteps kernel launches
-    whatever the member count.
+    (c) the ensemble path: fp32 T30 with SPPT on, Ensemble.initialize, the
+    M-member day captured (timed on its own), then run_days over 2 days at
+    8 and at 64 members with the stability guard per member (member-days/
+    min, ms/step), every field finite, the members apart, and 2 x nsteps
+    kernel launches whatever the member count;
+10. the captured day: (a) a replayed day (under
+    torch.cuda.set_sync_debug_mode("error"), after its capture) against the
+    eager module-level run_day on a side stream from the same booted
+    state, torch.equal in every state leaf: the fast variant in fp64 and
+    fp32, SPPT off and on, one model and 8 members, and the output variant
+    (Model.run's and run_days' with writers) in fp64 and fp32, SPPT on,
+    one model and 8 members, with every step's diagnostics and gridded
+    fields equal too; run_fast over 2 days, capture included, under the
+    same mode (only the marked syncs: the capture and the guard once a
+    chunk); (b) the K1 kernels in a profiler trace of one replayed T30
+    day: nsteps, nsteps / nstrad of them SW; (c) bench_step.day_times: the
+    eager day and the replayed day (run_fast / run_days of one day) in
+    turns, bench_step.REPEATS times each, fp32 T30: sim-days/min of one
+    model with SPPT off and on and member-days/min at 8 and 64 members
+    (SPPT on), each as the median and range, with the replayed day's
+    device time and busy share, the capture's time and its graph pool's
+    size, and at 64 members the SPPT pre-draw's host and device time.
 The last three lines are the kernel table, the card and the result line.
 Runs on the stand-in boundary set (speedy_tpu_torch/utils/synthetic_bc.py).
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -62,6 +86,8 @@ import torch
 
 from speedy_tpu_torch import bench_physics
 from speedy_tpu_torch.bench_physics import OUTPUT_NAMES, field_errors
+from speedy_tpu_torch.bench_step import (REPEATS, booted, capture_day,
+                                         day_times, trace)
 from speedy_tpu_torch.bench_transform import card_line, time_graph_ms, time_ms
 
 STEP_BOUND = 1e-10        # relative, CPU vs CUDA prognostics after 6 steps
@@ -75,7 +101,14 @@ TRANSFORM_CASES = (("t30", ("fp64", "fp32"), (1, 7) + tuple(BENCH_BATCHES)),
                    ("t85", ("fp64",), (256,)))
 SPPT_NOISE_SEED = 12345
 N_TIMED = 100
-ENSEMBLE_SIZES = (8, 64)   # [9] (c)
+ENSEMBLE_SIZES = (8, 64)   # [9] (c), [10] (c)
+RUN_REPEATS = 5            # [8] Model.run without output
+# [10] (a): (precision, SPPT, members, output variant) of the
+# replay-against-eager cases
+CAPTURE_CASES = ([(p, sppt, m, False) for p in ("fp64", "fp32")
+                  for sppt in (False, True) for m in (None, 8)]
+                 + [(p, True, m, True) for p in ("fp64", "fp32")
+                    for m in (None, 8)])
 
 
 def ptxas_summary(log: str):
@@ -246,6 +279,7 @@ def sppt_phase(bc, start, card):
           + f" (bound {STEP_BOUND:.0e}) {'ok' if ok else 'FAILED'}")
 
     model = Model(t30(sppt_on=True), device="cuda", bc_arrays=bc)
+    _, capture_s, _ = capture_day(model, model.initialize(start), start)
     fused.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -258,8 +292,9 @@ def sppt_phase(bc, start, card):
     finite = all(bool(torch.isfinite(x).all()) for x in state.prog)
     print(f"[7] SPPT fp32 T30 2 days: {2 / ((t2 - t1) / 60.0):.1f} "
           f"sim-days/min (run_fast {t2 - t1:.3f} s, initialize "
-          f"{t1 - t0:.3f} s) on {card}; K1 launches {n_launch} (sw "
-          f"{fused.launches_sw}), expected {expect}; finite={finite}")
+          f"{t1 - t0:.3f} s; capture before them {capture_s:.3f} s) on "
+          f"{card}; K1 launches {n_launch} (sw {fused.launches_sw}), "
+          f"expected {expect}; finite={finite}")
     return ok and finite and n_launch == expect
 
 
@@ -309,6 +344,31 @@ def run_phase(bc, start):
     same &= torch.equal(straight.sppt.spec, resumed.sppt.spec)
     print(f"[8] checkpoint at {date} (step {step}) resumed to {day2}: "
           f"equal to the straight run: {same}")
+    # Model.run without output, then its day (diagnostics only) and the
+    # day with grids (a writer's) in turns: replay and host copy
+    walls, days = [], {False: [], True: []}
+    state = model.initialize(start)
+    rows = model.make_ds_days(start, start, 1)[0]
+    for _ in range(RUN_REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.run(start, day2, state=state, verbose=False)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) / 2)
+        for grids in (False, True):
+            cd = model.captured_day(state, collect_output=True, grids=grids)
+            cd.load(state)
+            cd.set_days(rows)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cd.advance(0, model.sppt_noise)
+            cd.outputs()
+            days[grids].append(time.perf_counter() - t0)
+    med = {k: float(np.median(v)) for k, v in days.items()}
+    print(f"[8] Model.run 2 days without output (captured before): "
+          f"{np.median(walls):.4f} s/day, median of {RUN_REPEATS} "
+          f"({min(walls):.4f}-{max(walls):.4f}); its day (replay and host "
+          f"copy) {med[False]:.4f} s, with grids {med[True]:.4f} s")
     return files_ok and same
 
 
@@ -320,7 +380,6 @@ def ensemble_phase(bc, start, card):
     from speedy_tpu_torch.models.model import Model, one_step
     from speedy_tpu_torch.models.physics import fused
     from speedy_tpu_torch.parallel.ensemble import Ensemble
-    from speedy_tpu_torch.utils import calendar as cal
 
     t_phase = time.perf_counter()
     ok, rows = True, {}
@@ -367,21 +426,20 @@ def ensemble_phase(bc, start, card):
           "member: " + " ".join(f"{k}={v:.2e}" for k, v in worst.items())
           + f" (bound {STEP_BOUND:.0e}) {'ok' if good else 'FAILED'}")
 
-    # (c) the ensemble path, fp32 SPPT, 2 days, the second timed
+    # (c) the ensemble path, fp32 SPPT, the day captured first, 2 days
     model = Model(t30(sppt_on=True), device="cuda", bc_arrays=bc)
     nsteps = model.cfg.nsteps
-    day1 = cal.next_day(start)
     launches = None
     for members in ENSEMBLE_SIZES:
         ens = Ensemble(model, members, base_seed=0)
         estate = ens.initialize(start)
+        _, capture_s, pool = capture_day(model, estate, start)
         fused.reset_launches()
-        estate, _ = ens.run_days(estate, start, 1)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        estate, _ = ens.run_days(estate, day1, 1)
+        estate, _ = ens.run_days(estate, start, 2)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        wall = (time.perf_counter() - t0) / 2
         n_launch, n_sw = fused.launches, fused.launches_sw
         finite = all(bool(torch.isfinite(x).all())
                      for g in estate[:3] for x in g)
@@ -390,16 +448,175 @@ def ensemble_phase(bc, start, card):
         good = finite and spread > 0.0 and n_launch == 2 * nsteps
         ok &= good
         print(f"[9] ensemble fp32 T30 SPPT {members} members, 2 days "
-              f"(guard per member each day): second day {wall:.3f} s, "
+              f"(guard per member each day): {wall:.3f} s a day, "
               f"{members / (wall / 60.0):.1f} member-days/min, "
-              f"{wall / nsteps * 1e3:.3f} ms/step on {card}; K1 launches "
-              f"{n_launch} (sw {n_sw}), expected {2 * nsteps}; finite="
-              f"{finite}, smallest member spread (vor) {spread:.3e} "
-              f"{'ok' if good else 'FAILED'}")
+              f"{wall / nsteps * 1e3:.3f} ms/step on {card} (capture "
+              f"before them {capture_s:.3f} s, the model's graph pool "
+              f"{pool / 2**20:.1f} MiB); K1 launches {n_launch} (sw "
+              f"{n_sw}), expected {2 * nsteps}; finite={finite}, smallest "
+              f"member spread (vor) {spread:.3e} {'ok' if good else 'FAILED'}")
         if members == 64:
             launches = (n_launch, n_sw)
     print(f"[9] phase time {time.perf_counter() - t_phase:.1f} s")
     return ok, rows, launches
+
+
+@contextlib.contextmanager
+def sync_error():
+    """Any host synchronisation not marked deliberate
+    (models/captured.py ``host_sync``) raises."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def side_eager_day(model, state, start, noise, collect_output=False,
+                   grids=False):
+    """One day of the module-level run_day (eager), on a side stream, as
+    the captured day runs on one, with diagnostics every
+    ``cfg.diag_every`` steps or, with ``collect_output``, every step, and
+    with ``grids`` every step's gridded fields: run_day's (state,
+    diagnostics, grids)."""
+    from speedy_tpu_torch.models.model import run_day
+    cfg = model.cfg
+    cur, side = torch.cuda.current_stream(), torch.cuda.Stream()
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        out = run_day(cfg, model.pp, model.lsp, model.mc, state,
+                      model.date_scalars(start, start),
+                      1 if collect_output else cfg.diag_every, noise,
+                      grids)
+    cur.wait_stream(side)
+    torch.cuda.synchronize()
+    return out
+
+
+def replay_vs_eager(model, start, members=None, collect_output=False,
+                    grids=False):
+    """[10] (a) One day from the booted state replayed (under the sync
+    debug mode "error", after its capture) and run eagerly, in the fast
+    variant or, with ``collect_output``, the output variant (every step's
+    diagnostics and, with ``grids``, gridded fields, against run_day's
+    with diagnostics every step): (equal in every state leaf and output,
+    what differs, capture seconds)."""
+    from speedy_tpu_torch.models.captured import leaves
+    from speedy_tpu_torch.models.model import GRID_FIELDS
+    from speedy_tpu_torch.utils.diagnostics import Diagnostics
+    state, noise, _ = booted(model, start, members)
+    cd, capture_s, _ = capture_day(model, state, start,
+                                   collect_output=collect_output, grids=grids)
+    with sync_error():
+        cd.advance(0, noise)
+    replayed = cd.result()
+    eager, diags, fields = side_eager_day(model, state, start, noise,
+                                          collect_output, grids)
+    differ = [f"leaf {i}" for i, (a, b) in enumerate(zip(leaves(replayed),
+                                                         leaves(eager)))
+              if not torch.equal(a, b)]
+    if collect_output:
+        ref = {f: torch.stack([getattr(d, f) for d in diags])
+               for f in Diagnostics._fields}
+        if grids:
+            ref.update({k: torch.stack([g[k] for g in fields])
+                        for k in GRID_FIELDS})
+        out = cd.outputs()
+        differ += [k for k, v in ref.items()
+                   if not np.array_equal(out.pop(k), v.cpu().numpy())]
+        differ += [f"{k} unexpected" for k in out]
+    return not differ, differ, capture_s
+
+
+K1_SW = re.compile(r"column_physics_kernel(<[^,]+, ?\d+, ?true"
+                   r"|I[fd]Li\d+ELb1)")
+
+
+def k1_in_trace(fn):
+    """The kernels of one call of ``fn`` in a profiler trace: (K1 kernels,
+    K1 SW kernels, all kernels)."""
+    names = [n for n, _ in trace(fn)[1]]
+    k1 = [n for n in names if "column_physics" in n]
+    return len(k1), sum(1 for n in k1 if K1_SW.search(n)), len(names)
+
+
+def capture_phase(bc, start, card):
+    """[10] The captured day: replay against eager, no hidden sync, the
+    K1 nodes of a replayed day, and the eager and replayed rates."""
+    from speedy_tpu_torch.config import t30
+    from speedy_tpu_torch.models.model import Model
+
+    ok = True
+    models = {}
+    for prec, sppt, members, collect in CAPTURE_CASES:
+        if (prec, sppt) not in models:
+            models[(prec, sppt)] = Model(t30(precision=prec, sppt_on=sppt),
+                                         device="cuda", bc_arrays=bc)
+        model = models[(prec, sppt)]
+        equal, differ, capture_s = replay_vs_eager(
+            model, start, members, collect_output=collect, grids=collect)
+        differ = f" ({', '.join(differ)} differ)" if differ else ""
+        ok &= equal
+        variant = ("output variant (diagnostics and grids every step)"
+                   if collect else "fast variant")
+        print(f"[10] replayed day vs eager day, {variant}, {prec} T30 SPPT "
+              f"{'on' if sppt else 'off'}, "
+              f"{members or 1} member{'s' if members else ''}: "
+              f"torch.equal {equal}{differ}"
+              f", replay under sync debug mode error; capture "
+              f"{capture_s:.2f} s {'ok' if equal else 'FAILED'}")
+
+    model = Model(t30(), device="cuda", bc_arrays=bc)
+    state = model.initialize(start)
+    t0 = time.perf_counter()
+    with sync_error():
+        model.run_fast(start, 2, state=state)
+    torch.cuda.synchronize()
+    print(f"[10] run_fast fp32 T30 2 days, capture included, under sync "
+          f"debug mode error: {time.perf_counter() - t0:.2f} s ok")
+
+    cd = model.captured_day(state)
+    cd.load(state)
+    cd.set_days(model.make_ds_days(start, start, 1)[0])
+    n_k1, n_sw, n_all = k1_in_trace(lambda: cd.advance(0))
+    nsteps, nstrad = model.cfg.nsteps, model.cfg.nstrad
+    good = n_k1 == nsteps and n_sw == nsteps // nstrad
+    ok &= good
+    print(f"[10] profiler trace of one replayed fp32 T30 day: {n_k1} K1 "
+          f"kernels ({n_sw} SW), expected {nsteps} ({nsteps // nstrad}); "
+          f"{n_all} kernels in all {'ok' if good else 'FAILED'}")
+
+    for label, sppt, members in (("1 model SPPT off", False, None),
+                                 ("1 model SPPT on", True, None),
+                                 ("8 members SPPT on", True, 8),
+                                 ("64 members SPPT on", True, 64)):
+        fresh = Model(t30(sppt_on=sppt), device="cuda", bc_arrays=bc)
+        rec = day_times(fresh, start, members)
+        n = members or 1
+        rate = {k: [n * 60.0 / t for t in rec[k]]
+                for k in ("eager", "replayed")}
+        med = {k: float(np.median(v)) for k, v in rate.items()}
+        unit = "sim-days/min" if members is None else "member-days/min"
+        prof = rec["profiles"]["replayed"]
+        extra = ""
+        if members == 64:
+            extra = (f"; SPPT pre-draw ({nsteps} x {members} randn) "
+                     f"{rec['predraw_host_s'] * 1e3:.2f} ms host, "
+                     f"{rec['predraw_device_s'] * 1e3:.2f} ms device")
+        print(f"[10] {label}, fp32 T30, {REPEATS} pairs in turns: "
+              f"{unit} eager {med['eager']:.1f} "
+              f"({min(rate['eager']):.1f}-{max(rate['eager']):.1f}), "
+              f"replayed {med['replayed']:.1f} "
+              f"({min(rate['replayed']):.1f}-{max(rate['replayed']):.1f}), "
+              f"{med['replayed'] / med['eager']:.2f}x; replayed day "
+              f"{float(np.median(rec['replayed'])) / nsteps * 1e3:.3f} "
+              f"ms/step, device {prof['device_ms_per_step']:.3f} ms/step "
+              f"(busy {prof['busy_share']:.2f} of a profiled day); capture "
+              f"{rec['capture_s']:.2f} s, the model's "
+              f"graph pool {rec['pool_bytes'] / 2**20:.1f} MiB after it "
+              f"(all reserved {rec['reserved_bytes'] / 2**20:.1f} MiB)"
+              f"{extra} on {card}")
+    return ok
 
 
 def main() -> int:
@@ -487,8 +704,10 @@ def main() -> int:
     if not step_ok:
         return 1
 
-    # [5] the main path: fp32 T30, initialize + 2 days with the guard
+    # [5] the main path: fp32 T30, the day captured first, then
+    # initialize + 2 days with the guard, each day one replay
     model = Model(t30(), device="cuda", bc_arrays=bc)
+    _, capture_s, pool = capture_day(model, model.initialize(start), start)
     fused.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -502,9 +721,11 @@ def main() -> int:
     finite = all(bool(torch.isfinite(x).all()) for x in state.prog)
     days_per_min = 2 / ((t2 - t1) / 60.0)
     print(f"[5] fp32 T30 2 days: {days_per_min:.1f} sim-days/min "
-          f"(run_fast {t2 - t1:.3f} s, initialize {t1 - t0:.3f} s) on "
-          f"{card}; kernel launches {n_launch} (sw {n_launch_sw}), "
-          f"expected {expect}; finite={finite}")
+          f"(run_fast {t2 - t1:.3f} s, initialize {t1 - t0:.3f} s; warm-up "
+          f"day and capture before them {capture_s:.3f} s, graph pool "
+          f"{pool / 2**20:.1f} MiB) on {card}; kernel launches {n_launch} (sw "
+          f"{n_launch_sw}), expected {expect} (2 in the boot, "
+          f"{model.cfg.nsteps} a replayed day); finite={finite}")
     if n_launch != expect or not finite:
         print("[5] FAILED")
         return 1
@@ -527,6 +748,9 @@ def main() -> int:
     e_ok, e_rows, (n_m64, n_m64_sw) = ensemble_phase(bc, start, card)
     if not e_ok:
         print("[9] FAILED")
+        return 1
+    if not capture_phase(bc, start, card):
+        print("[10] FAILED")
         return 1
 
     kernels = []

@@ -9,6 +9,7 @@ time step with per-delt relaxation coefficients (sea_model.f90:245-246).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -213,31 +214,89 @@ class DateScalars(NamedTuple):
     w2n: torch.Tensor     # [12]
 
 
-def make_date_scalars(cfg: ModelConfig, geom_np: dict, imont1: int,
-                      tmonth: float, tyear: float, device,
-                      year: int = 0,
-                      imont1_next: Optional[int] = None,
-                      tmonth_next: Optional[float] = None) -> DateScalars:
-    """Date-derived inputs of the daily update. ``imont1_next`` /
-    ``tmonth_next`` are the season variables of the next calendar day,
-    used for the day's final coupling step; they default to this day's."""
+def date_scalars_np(cfg: ModelConfig, geom_np: dict, imont1: int,
+                    tmonth: float, tyear: float, year: int = 0,
+                    imont1_next: Optional[int] = None,
+                    tmonth_next: Optional[float] = None) -> DateScalars:
+    """Date-derived inputs of the daily update as host arrays in the
+    model's type. ``imont1_next`` / ``tmonth_next`` are the season
+    variables of the next calendar day, used for the day's final coupling
+    step; they default to this day's."""
     t = np.float64 if cfg.precision == "fp64" else np.float32
     zon = zonal_average_fields(geom_np["sia"], geom_np["coa"], tyear)
-    dev = lambda a: torch.as_tensor(np.array(a, dtype=t), device=device)
-    col = lambda a: dev(a)[:, None]
+    arr = lambda a: np.array(a, dtype=t)
+    col = lambda a: arr(a)[:, None]
     ablco2 = ABLCO2_REF
     if cfg.increase_co2:
         ablco2 = ABLCO2_REF * np.exp(DEL_CO2 * (year + tyear - IYEAR_REF))
     if imont1_next is None:
         imont1_next, tmonth_next = imont1, tmonth
     return DateScalars(
-        w5=dev(forin5_weights(imont1, tmonth)),
-        w2=dev(forint_weights(imont1, tmonth)),
+        w5=arr(forin5_weights(imont1, tmonth)),
+        w2=arr(forint_weights(imont1, tmonth)),
         fsol=col(zon["fsol"]), ozupp=col(zon["ozupp"]),
         ozone=col(zon["ozone"]), zenit=col(zon["zenit"]),
-        stratz=col(zon["stratz"]), ablco2=dev(ablco2),
-        w5n=dev(forin5_weights(imont1_next, tmonth_next)),
-        w2n=dev(forint_weights(imont1_next, tmonth_next)))
+        stratz=col(zon["stratz"]), ablco2=arr(ablco2),
+        w5n=arr(forin5_weights(imont1_next, tmonth_next)),
+        w2n=arr(forint_weights(imont1_next, tmonth_next)))
+
+
+def make_date_scalars(cfg: ModelConfig, geom_np: dict, imont1: int,
+                      tmonth: float, tyear: float, device,
+                      year: int = 0,
+                      imont1_next: Optional[int] = None,
+                      tmonth_next: Optional[float] = None) -> DateScalars:
+    """``date_scalars_np`` on ``device``."""
+    ds = date_scalars_np(cfg, geom_np, imont1, tmonth, tyear, year,
+                         imont1_next, tmonth_next)
+    return DateScalars(*(torch.as_tensor(a, device=device) for a in ds))
+
+
+# each field of a packed date row starts at a multiple of this many
+# values (256 bytes in fp32): a view at an unaligned offset can send a
+# library call (the climatology's einsum) down another path than a fresh
+# tensor takes, with its sums in another order
+DATE_ALIGN = 64
+
+
+def _date_layout(cfg: ModelConfig):
+    """(offset, shape) of each DateScalars field in a packed row, and the
+    row's length F."""
+    shapes = [(12,), (12,)] + [(cfg.il, 1)] * 5 + [(), (12,), (12,)]
+    layout, off = [], 0
+    for s in shapes:
+        layout.append((off, s))
+        off += -(-math.prod(s) // DATE_ALIGN) * DATE_ALIGN
+    return layout, off
+
+
+def date_row_size(cfg: ModelConfig) -> int:
+    """F, the length of one day's packed DateScalars."""
+    return _date_layout(cfg)[1]
+
+
+def pack_date_scalars(cfg: ModelConfig, days) -> np.ndarray:
+    """Host DateScalars of several days as one [days, F] array, a row a
+    day, each field at its aligned offset (``date_scalars_view`` reads a
+    row back)."""
+    layout, size = _date_layout(cfg)
+    out = np.zeros((len(days), size),
+                   np.float64 if cfg.precision == "fp64" else np.float32)
+    for row, ds in zip(out, days):
+        for (off, s), a in zip(layout, ds):
+            row[off:off + math.prod(s)] = np.reshape(a, -1)
+    return out
+
+
+def date_scalars_view(cfg: ModelConfig, flat: torch.Tensor) -> DateScalars:
+    """DateScalars as views of one [F] row laid out as
+    ``pack_date_scalars`` lays it out."""
+    layout, size = _date_layout(cfg)
+    if flat.numel() != size:
+        raise ValueError(f"a date row of {flat.numel()} values, expected "
+                         f"{size}")
+    return DateScalars(*(flat[off:off + math.prod(s)].view(s)
+                         for off, s in layout))
 
 
 def _interp_sea_clim(clim: Climatology, w5, w2):

@@ -1,12 +1,16 @@
 """Top-level model: build, initialize, run (initialization.f90 +
 speedy.f90).
 
-The state advances one step at a time in Python loops on the device
-(``run_day``: the day's steps as triples with the shortwave on the first
-step of each; ``run_fast``: whole days with the stability guard checked
-once per day; ``run``: whole days with the guard and the diagnostics per
-step, gridded output and checkpoints). The host computes the
-date-derived scalars once a day.
+A simulated day is ``run_day``: the day's steps as triples with the
+shortwave on the first step of each and the next day's climatology on the
+last coupling (the JAX package's ``run_day``). Called directly it runs
+eagerly, step by step. ``run_fast`` (whole days, the stability guard
+checked once per chunk of days), ``run`` (the guard and the diagnostics
+per step, gridded output, checkpoints) and ``Ensemble.run_days`` stage
+each day instead (models/captured.py): the state, the date inputs and the
+SPPT innovations go into static buffers, and on CUDA the day is one
+replay of a captured graph, as the JAX package runs one compiled day;
+on the CPU the same staged day runs eagerly.
 """
 from __future__ import annotations
 
@@ -22,11 +26,13 @@ from ..geometry import build_geometry, build_geometry_np
 from ..ops import spectral as sp
 from ..utils import calendar as cal
 from ..utils.checkpoint import save_checkpoint
-from ..utils.diagnostics import (Diagnostics, compute_diagnostics,
-                                 check_diagnostics, format_diagnostics)
+from ..utils.diagnostics import (Diagnostics, check_days,
+                                 compute_diagnostics, check_diagnostics,
+                                 format_diagnostics)
 from . import boundaries as bnd
 from . import coupling
 from .axes import level as L, levels
+from .captured import CapturedDay, host_sync, members_of
 from .geopotential import build_geopotential, get_geopotential
 from .hdiffusion import build_diffusion, build_diffusion_np, DiffusionConsts
 from .implicit import build_implicit, ImplicitConsts
@@ -39,6 +45,9 @@ from .prognostics import rest_state
 from .state import PrognosticState, time_level
 from .tendencies import DynConsts
 from .time_stepping import OrographicCorrection, first_step, step
+
+
+GRID_FIELDS = ("u", "v", "t", "q", "phi", "ps")   # gridded_fields' keys
 
 
 class ModelConsts(NamedTuple):
@@ -82,18 +91,20 @@ def _physics_fn(cfg, pp, daily, state, compute_sw, sppt_pattern=None):
 def one_step(cfg: ModelConfig, pp: PhysicsParams,
              lsp: coupling.LandSeaParams, mc: ModelConsts, state: ModelState,
              daily: DailyForcing, compute_sw: bool, couple_next: bool = False,
-             with_diag: bool = True, noise: Noise = None
+             with_diag: bool = True, noise: Noise = None,
+             eta: Optional[torch.Tensor] = None
              ) -> Tuple[ModelState, Optional[Diagnostics]]:
     """One leapfrog step with physics, then the slab coupling. On the
     day's last step ``couple_next`` couples with the next day's
     climatology (speedy.f90:47-53). With ``sppt_on`` the SPPT state takes
     its AR(1) update first and its pattern rides the step's synthesis;
-    ``noise`` supplies the innovations (physics/sppt.py)."""
+    ``eta`` holds the update's innovations drawn ahead, else ``noise``
+    supplies them (physics/sppt.py)."""
     corr = OrographicCorrection(tcorh=daily.tcorh, qcorh=daily.qcorh)
     sppt_spec, sppt_state = None, state.sppt
     if cfg.sppt_on:
         sppt_spec, sppt_state = sppt_ar1(cfg, pp.sppt_sigma, state.sppt,
-                                         noise)
+                                         noise, eta)
     phys = _physics_fn(cfg, pp, daily, state, compute_sw)
     prog, aux = step(cfg, mc.dyn, mc.dc, mc.ic_2dt, state.prog,
                      2, 2, 2 * cfg.delt, corr, phys, sppt_spec)
@@ -127,31 +138,48 @@ def gridded_fields(cfg: ModelConfig, mc: ModelConsts, prog: PrognosticState,
                 ps=P0 * torch.exp(L(g, 3 * kx)))
 
 
-def run_day(cfg: ModelConfig, pp: PhysicsParams, lsp: coupling.LandSeaParams,
-            mc: ModelConsts, state: ModelState, ds: coupling.DateScalars,
-            diag_every: int = 1, noise: Noise = None,
-            collect_output: bool = False
-            ) -> Tuple[ModelState, List[Diagnostics],
-                       Optional[List[Dict[str, torch.Tensor]]]]:
-    """One simulated day: nsteps steps as triples of nstrad steps with the
-    shortwave on the first of each (model.py run_day of the JAX package,
-    speedy.f90:35). Diagnostics every ``diag_every`` steps (must divide
-    nstrad); with ``collect_output`` the gridded fields after every step
-    (on the device), else None."""
+def day_steps(cfg: ModelConfig, pp: PhysicsParams,
+              lsp: coupling.LandSeaParams, mc: ModelConsts,
+              state: ModelState, ds: coupling.DateScalars,
+              diag_every: int = 1, noise: Noise = None,
+              eta: Optional[torch.Tensor] = None):
+    """The day's steps: nsteps steps as triples of nstrad steps with the
+    shortwave on the first of each (speedy.f90:35), after the daily update
+    from ``ds`` and the day-start surface. Yields (state, diagnostics or
+    None) after each step, with diagnostics every ``diag_every`` steps
+    (must divide nstrad). With SPPT, ``eta`` [nsteps, ...] holds the
+    day's innovations drawn ahead (sppt.draw_day), else ``noise`` or the
+    state's generator supplies them step by step."""
     if cfg.nstrad % diag_every:
         raise ValueError(f"diag_every={diag_every} must divide "
                          f"nstrad={cfg.nstrad}")
     daily = coupling.daily_update(cfg, pp, lsp, mc.dyn.sc, mc.clim, ds,
                                   state.surf)
-    diags = []
-    grids = [] if collect_output else None
     for istep in range(cfg.nsteps):
         i = istep % cfg.nstrad
         state, diag = one_step(cfg, pp, lsp, mc, state, daily,
                                compute_sw=(i == 0),
                                couple_next=(istep == cfg.nsteps - 1),
                                with_diag=((i + 1) % diag_every == 0),
-                               noise=noise)
+                               noise=noise,
+                               eta=None if eta is None else eta[istep])
+        yield state, diag
+
+
+def run_day(cfg: ModelConfig, pp: PhysicsParams, lsp: coupling.LandSeaParams,
+            mc: ModelConsts, state: ModelState, ds: coupling.DateScalars,
+            diag_every: int = 1, noise: Noise = None,
+            collect_output: bool = False
+            ) -> Tuple[ModelState, List[Diagnostics],
+                       Optional[List[Dict[str, torch.Tensor]]]]:
+    """One simulated day run eagerly, step by step (model.py run_day of
+    the JAX package; ``day_steps``). Diagnostics every ``diag_every``
+    steps; with ``collect_output`` the gridded fields after every step
+    (on the device), else None."""
+    diags = []
+    grids = [] if collect_output else None
+    for state, diag in day_steps(cfg, pp, lsp, mc, state, ds, diag_every,
+                                 noise):
         if diag is not None:
             diags.append(diag)
         if collect_output:
@@ -181,22 +209,11 @@ def boot(cfg: ModelConfig, pp: PhysicsParams, lsp: coupling.LandSeaParams,
     return state._replace(prog=prog, rad=aux.rad, sppt=sppt_state)
 
 
-def check_day(diags: List[Diagnostics], day: int) -> None:
-    """The stability guard on a day's extrema (per member of an ensemble):
-    one host synchronisation."""
-    reke = torch.stack([d.reke for d in diags]).amax(dim=0)
-    deke = torch.stack([d.deke for d in diags]).amax(dim=0)
-    tm = torch.stack([d.tmean for d in diags])
-    tmin, tmax = tm.amin(dim=0), tm.amax(dim=0)
-    guard = torch.stack([reke, deke, tmin, tmax]).cpu().numpy()
-    check_diagnostics(Diagnostics(
-        reke=guard[0], deke=guard[1],
-        tmean=np.where(guard[2] < 180.0, guard[2], guard[3])), day)
-
-
 def _to_host(tensors: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """Bring a dict of same-dtype tensors to the host in one copy."""
-    flat = torch.cat([t.reshape(-1) for t in tensors.values()]).cpu().numpy()
+    flat = torch.cat([t.reshape(-1) for t in tensors.values()])
+    with host_sync():
+        flat = flat.cpu().numpy()
     out, off = {}, 0
     for k, t in tensors.items():
         out[k] = flat[off:off + t.numel()].reshape(t.shape)
@@ -247,20 +264,29 @@ class Model:
             dyn=dyn, dc=build_diffusion(cfg, self.geom_np, dev),
             ic_half=implicit(0.5 * cfg.delt), ic_full=implicit(cfg.delt),
             ic_2dt=implicit(2 * cfg.delt), clim=clim)
+        self._captured: Dict[tuple, CapturedDay] = {}
+        self.graph_pool = None    # shared by the model's captured days
 
     # ------------------------------------------------------------------
-    def date_scalars(self, date: cal.Datetime,
-                     start: cal.Datetime) -> coupling.DateScalars:
-        """Date inputs of the day starting at ``date`` (run began at
-        ``start``), with the next day's weights for the last coupling."""
+    def _season(self, date: cal.Datetime, start: cal.Datetime) -> tuple:
+        """make_date_scalars' date arguments for the day starting at
+        ``date`` (run began at ``start``), with the next day's weights for
+        the last coupling."""
         cfg = self.cfg
         imont1, tmonth, tyear = cal.season_vars(date, cfg.iseasc,
                                                 start.month)
         im_n, tm_n, _ = cal.season_vars(cal.next_day(date), cfg.iseasc,
                                         start.month)
-        return coupling.make_date_scalars(
-            cfg, self.geom_np, imont1, tmonth, tyear, self.device,
-            year=date.year, imont1_next=im_n, tmonth_next=tm_n)
+        return (imont1, tmonth, tyear), dict(year=date.year, imont1_next=im_n,
+                                            tmonth_next=tm_n)
+
+    def date_scalars(self, date: cal.Datetime,
+                     start: cal.Datetime) -> coupling.DateScalars:
+        """Date inputs of the day starting at ``date`` (run began at
+        ``start``), on the device."""
+        args, kw = self._season(date, start)
+        return coupling.make_date_scalars(self.cfg, self.geom_np, *args,
+                                          self.device, **kw)
 
     def initial_state(self, start: cal.Datetime) -> ModelState:
         """Rest state, day-0 surface and radiation, and the stationary SPPT
@@ -299,42 +325,89 @@ class Model:
                                      state.surf)
 
     def make_ds_days(self, date: cal.Datetime, start: cal.Datetime,
-                     n_days: int):
-        """Date inputs for ``n_days`` days from ``date`` (run began at
-        ``start``); returns (list of DateScalars, end date)."""
-        ds_days = []
+                     n_days: int) -> Tuple[np.ndarray, cal.Datetime]:
+        """Date inputs of ``n_days`` days from ``date`` (run began at
+        ``start``), built ahead on the host as one [n_days, F] array
+        (coupling.pack_date_scalars); returns (rows, end date)."""
+        days = []
         for _ in range(n_days):
-            ds_days.append(self.date_scalars(date, start))
+            args, kw = self._season(date, start)
+            days.append(coupling.date_scalars_np(self.cfg, self.geom_np,
+                                                 *args, **kw))
             for _ in range(self.cfg.nsteps):
                 date = cal.newdate(date, self.cfg.nsteps)
-        return ds_days, date
+        return coupling.pack_date_scalars(self.cfg, days), date
 
     def run_day(self, state: ModelState, date: cal.Datetime,
                 start: cal.Datetime, diag_every: int = 1):
-        """One day from ``date``: (state, diagnostics)."""
+        """One day from ``date`` run eagerly: (state, diagnostics)."""
         state, diags, _ = run_day(self.cfg, self.pp, self.lsp, self.mc,
                                   state, self.date_scalars(date, start),
                                   diag_every, self.sppt_noise)
         return state, diags
 
+    def captured_day(self, state: ModelState, collect_output: bool = False,
+                     grids: bool = False) -> CapturedDay:
+        """The staged day (models/captured.py) for ``state``'s member count
+        and variant: without output, diagnostics every ``cfg.diag_every``
+        steps for the guard; with ``collect_output``, every step's
+        diagnostics and, with ``grids``, gridded fields. One per (members,
+        variant), made at first use and captured at its first day on CUDA;
+        a model's graphs share one memory pool."""
+        key = (members_of(state), collect_output, grids)
+        cd = self._captured.get(key)
+        if cd is None:
+            if self.device.type == "cuda" and self.graph_pool is None:
+                self.graph_pool = torch.cuda.graph_pool_handle()
+            cd = self._captured[key] = CapturedDay(
+                self, state, 1 if collect_output else self.cfg.diag_every,
+                collect_output, grids, self.graph_pool)
+        return cd
+
+    def run_staged(self, cd: CapturedDay, date: cal.Datetime,
+                   start: cal.Datetime, n_days: int, noise: Noise,
+                   check: bool = True, max_chunk_days: int = 90,
+                   after_day=None) -> cal.Datetime:
+        """Advance the state loaded into ``cd`` ``n_days`` from ``date``
+        (run began at ``start``), in chunks of at most ``max_chunk_days``:
+        a chunk's date inputs reach the device in one copy, each day is
+        one replay, and with ``check`` the guard is checked on every day's
+        extrema once a chunk (one host synchronisation), naming the first
+        day out of range (counted from ``date``). ``after_day(i)`` runs
+        after day i's replay. Returns the end date."""
+        if max_chunk_days < 1:
+            raise ValueError(f"max_chunk_days={max_chunk_days}")
+        done = 0
+        while done < n_days:
+            chunk = min(n_days - done, max_chunk_days)
+            rows, date = self.make_ds_days(date, start, chunk)
+            cd.set_days(rows)
+            for d in range(chunk):
+                cd.advance(d, noise)
+                if after_day is not None:
+                    after_day(done + d)
+            if check:
+                check_days(cd.guard_rows(chunk), done)
+            done += chunk
+        return date
+
     # ------------------------------------------------------------------
     def run_fast(self, start: cal.Datetime, n_days: int,
                  state: Optional[ModelState] = None,
-                 check: bool = True) -> ModelState:
-        """Run ``n_days`` from ``start`` with no output; the stability
-        guard is checked once per day on the day's extrema (one host
-        synchronisation per day)."""
-        cfg = self.cfg
+                 check: bool = True, max_chunk_days: int = 90
+                 ) -> ModelState:
+        """Run ``n_days`` from ``start`` with no output, each day one
+        replay of the captured day (the JAX package's ``run_span``); the
+        stability guard is checked on each day's extrema once per chunk
+        of at most ``max_chunk_days`` days (``run_staged``). Returns a new
+        state; the given one is left as it was."""
         if state is None:
             state = self.initialize(start)
-        ds_days, _ = self.make_ds_days(start, start, n_days)
-        for day, ds in enumerate(ds_days):
-            state, diags, _ = run_day(cfg, self.pp, self.lsp, self.mc,
-                                      state, ds, cfg.diag_every,
-                                      self.sppt_noise)
-            if check:
-                check_day(diags, day)
-        return state
+        cd = self.captured_day(state)
+        cd.load(state)
+        self.run_staged(cd, start, start, n_days, self.sppt_noise, check,
+                        max_chunk_days)
+        return cd.result()
 
     def run(self, start: cal.Datetime, end: cal.Datetime,
             output_writer=None, verbose: bool = True,
@@ -348,7 +421,8 @@ class Model:
         every ``nstdia`` steps (``verbose``), and
         ``output_writer(step, date, start, fields)`` called with the gridded
         fields (numpy) every ``nsteps_out`` steps and at step 0. The day's
-        diagnostics and fields come to the host in one copy per day.
+        diagnostics, and with a writer its fields, come to the host in one
+        copy per day; without a writer the replayed day makes no fields.
 
         ``state``/``resume_date``/``model_step`` resume from a checkpoint
         (utils/checkpoint.py); ``checkpoint_every`` > 0 writes a checkpoint
@@ -369,17 +443,13 @@ class Model:
         if checkpoint_every and checkpoint_dir:
             os.makedirs(checkpoint_dir, exist_ok=True)
         collect = output_writer is not None
+        cd = self.captured_day(state, collect_output=True, grids=collect)
+        cd.load(state)
         day_count = 0
         while date < end:
-            state, diags, grids = run_day(
-                cfg, self.pp, self.lsp, self.mc, state,
-                self.date_scalars(date, start), 1, self.sppt_noise, collect)
-            day = {f: torch.stack([getattr(d, f) for d in diags])
-                   for f in Diagnostics._fields}
-            if collect:
-                day.update({k: torch.stack([g[k] for g in grids])
-                            for k in grids[0]})
-            day = _to_host(day)
+            cd.set_days(self.make_ds_days(date, start, 1)[0])
+            cd.advance(0, self.sppt_noise)
+            day = cd.outputs()
             for i in range(cfg.nsteps):
                 model_step += 1
                 date = cal.newdate(date, cfg.nsteps)
@@ -389,7 +459,7 @@ class Model:
                 check_diagnostics(diag_i, model_step)
                 if collect and model_step % cfg.nsteps_out == 0:
                     output_writer(model_step, date, start,
-                                  {k: day[k][i] for k in grids[0]})
+                                  {k: day[k][i] for k in GRID_FIELDS})
                 if not date < end:
                     break
             day_count += 1
@@ -397,6 +467,8 @@ class Model:
                     day_count % checkpoint_every == 0:
                 name = (f"ckpt_{date.year:04d}{date.month:02d}"
                         f"{date.day:02d}{date.hour:02d}{date.minute:02d}.npz")
-                save_checkpoint(os.path.join(checkpoint_dir, name), state,
-                                date, model_step, start=start, cfg=cfg)
-        return state
+                with host_sync():
+                    save_checkpoint(os.path.join(checkpoint_dir, name),
+                                    cd.result(), date, model_step,
+                                    start=start, cfg=cfg)
+        return cd.result()

@@ -14,6 +14,12 @@ standard-normal draws (any array type), which then supplies every
 innovation in order: the parity tests feed the JAX key chain's draws
 through it, chip_smoke.py a numpy seed.
 
+A staged day (models/captured.py) draws all of its updates' innovations
+ahead into a static buffer (``draw_day``), with the same calls in the same
+order as the steps would make them, since neither a generator's copy nor a
+host array can live inside a captured graph; ``sppt_ar1`` then takes each
+step's slice (``eta``).
+
 An ensemble's state (``stack_states``) has a member axis in front of
 ``spec`` and one generator per member: member i is seeded on its own and
 its draws depend only on its seed, never on the number of members, at the
@@ -118,13 +124,60 @@ def stack_states(states: Sequence[SpptState]) -> SpptState:
                      generator=tuple(s.generator for s in states))
 
 
+def draw_day(generator, noise: Noise, out: torch.Tensor):
+    """A day's innovations drawn ahead into ``out`` [nsteps, ..., kx, mx,
+    nx, 2] (the state's spec shape behind the update axis), clipped: update
+    i's draws are those ``sppt_ar1`` would make at the i-th step from the
+    same generator(s) or ``noise``, in the same order (per update, per
+    member), so a staged day is bit-equal to the eager one. Returns the
+    generator(s) advanced past the whole day (copies; the given ones are
+    left as they were). The draws are enqueued on the current stream;
+    ``noise`` sources' values reach the device in one copy from pinned
+    memory, without a host synchronisation."""
+    shape = tuple(out.shape[1:])
+    per_member = isinstance(generator, tuple) and not callable(noise)
+    if noise is None:
+        gens = tuple(map(_copy, generator)) if per_member \
+            else _copy(generator)
+        for i in range(out.shape[0]):
+            if per_member:
+                for m, g in enumerate(gens):
+                    out[i, m].normal_(generator=g)
+            else:
+                out[i].normal_(generator=gens)
+        generator = gens
+    else:
+        if per_member and len(noise) != len(generator):
+            raise ValueError(f"{len(noise)} noise sources for "
+                             f"{len(generator)} members")
+        host = np.empty(out.shape, np.float64)
+        for i in range(out.shape[0]):
+            if per_member:
+                for m, src in enumerate(noise):
+                    host[i, m] = np.array(src(shape[1:]))
+            else:
+                host[i] = np.array(noise(shape))
+        host = torch.from_numpy(host).to(out.dtype)
+        if out.device.type == "cuda":
+            host = host.pin_memory()
+        out.copy_(host, non_blocking=True)
+    out.clamp_(-10.0, 10.0)
+    return generator
+
+
 def sppt_ar1(cfg, sigma: torch.Tensor, state: SpptState,
-             noise: Noise = None) -> Tuple[torch.Tensor, SpptState]:
+             noise: Noise = None, eta: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, SpptState]:
     """AR(1) spectral update (sppt.f90:84-90). The synthesis of the
     returned spec rides the step's merged synthesis batch
-    (tendencies.grid_dynamics_tendencies)."""
-    eta, generator = _innovations(state.spec.shape, state.spec,
-                                  state.generator, noise)
+    (tendencies.grid_dynamics_tendencies). ``eta``: this update's clipped
+    innovations drawn ahead (``draw_day``), which leave the generator as
+    it is; else they are drawn here."""
+    if eta is None:
+        eta, generator = _innovations(state.spec.shape, state.spec,
+                                      state.generator, noise)
+    else:
+        generator = state.generator
     spec = sppt_phi(cfg) * state.spec + sigma[:, :, None] * eta
     return spec, SpptState(spec=spec, generator=generator)
 

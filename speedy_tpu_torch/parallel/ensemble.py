@@ -5,7 +5,9 @@ over members).
 Every leaf of an ensemble state is [M, ...], and one step serves all
 members: the transforms batch them into the same contractions and the
 column-physics kernel takes them as extra columns of one launch. What
-depends only on the date is computed once a day and shared. With SPPT on,
+depends only on the date is computed once a day and shared. A day of all
+members is one replay of the model's captured day for M members
+(models/captured.py), one graph per member count and variant. With SPPT on,
 each member has its own generator, seeded ``base_seed + i``, so a member's
 trajectory does not depend on how many members run beside it; with SPPT
 off every member equals the single model.
@@ -16,8 +18,8 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from ..models.model import (Model, ModelState, check_day, gridded_fields,
-                            run_day, _to_host)
+from ..models.model import (GRID_FIELDS, Model, ModelState, gridded_fields,
+                            _to_host)
 from ..models.physics.sppt import Noise, init_sppt_state, stack_states
 from ..utils import calendar as cal
 
@@ -66,7 +68,8 @@ class Ensemble:
     def run_days(self, estate: ModelState, start: cal.Datetime, n_days: int,
                  output_writers=None, model_step: int = 0
                  ) -> Tuple[ModelState, cal.Datetime]:
-        """Advance all members ``n_days`` from ``start``; returns (state,
+        """Advance all members ``n_days`` from ``start``, each day one
+        replay of the captured day (Model.run_staged); returns (a new state,
         end date).
 
         ``output_writers``: optional list of ``n_members`` writers with
@@ -75,7 +78,7 @@ class Ensemble:
         gridded fields of every member, and the initial state's when
         ``model_step`` is 0. A day's grids come to the host in one copy for
         all members and steps. The stability guard is checked on each
-        day's extrema, per member (one host synchronisation a day), as in
+        day's extrema, per member, once per chunk of days, as in
         Model.run_fast.
         """
         model, cfg = self.model, self.model.cfg
@@ -88,24 +91,24 @@ class Ensemble:
                 g0 = _to_host(gridded_fields(cfg, model.mc, estate.prog))
                 for m, w in enumerate(output_writers):
                     w(0, start, start, {k: v[m] for k, v in g0.items()})
+        cd = model.captured_day(estate, collect_output=collect,
+                                 grids=collect)
+        cd.load(estate)
         date = start
-        for day in range(n_days):
-            estate, diags, grids = run_day(
-                cfg, model.pp, model.lsp, model.mc, estate,
-                model.date_scalars(date, start), cfg.diag_every, self.noise,
-                collect)
-            check_day(diags, day)
-            if collect:
-                grids = _to_host({k: torch.stack([g[k] for g in grids])
-                                  for k in grids[0]})
+
+        def write(day: int) -> None:
+            nonlocal date
+            grids = cd.outputs()
             for i in range(cfg.nsteps):
                 date = cal.newdate(date, cfg.nsteps)
-                if collect:
-                    for m, w in enumerate(output_writers):
-                        w(model_step + i + 1, date, start,
-                          {k: v[i, m] for k, v in grids.items()})
-            model_step += cfg.nsteps
-        return estate, date
+                step = model_step + day * cfg.nsteps + i + 1
+                for m, w in enumerate(output_writers):
+                    w(step, date, start,
+                      {k: grids[k][i, m] for k in GRID_FIELDS})
+
+        end = model.run_staged(cd, start, start, n_days, self.noise,
+                               after_day=write if collect else None)
+        return cd.result(), end
 
     def member_fields(self, estate: ModelState, member: int
                       ) -> Dict[str, torch.Tensor]:

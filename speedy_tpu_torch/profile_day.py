@@ -1,25 +1,31 @@
-"""Where one simulated day's time goes on the card.
+"""Where one simulated day's time goes on the card, replayed and eager.
 
     python -m speedy_tpu_torch.profile_day [--precision fp32] [--sppt]
         [--members N]
 
-Builds the T30 model on CUDA from the stand-in boundary set, runs one warm
-day, then times one more day on the host clock (ending in a
-synchronise) and traces a third with torch.profiler. Prints the wall time
+Builds the T30 model on CUDA from the stand-in boundary set and measures
+its day with ``bench_step.day_times``: the warm-up day and the capture
+timed, then the eager day (the module-level ``run_day``, with the day's
+date inputs made and the guard checked, as the eager ``run_fast`` ran a
+day) and the replayed day (``Model.run_fast`` of one day, each day one
+replay of the captured graph) in turns, ``bench_step.REPEATS`` times each,
+from the same booted state. Prints the median and range of sim-days/min of
+each, then, from one traced day of each with torch.profiler, the wall time
 per step, the device time summed over CUDA kernels, the device's busy
-share, the number of kernel launches per step, and the kernels that take
-the most device time, with the column-physics kernel's share. ``--sppt``
-runs the model with SPPT on. ``--members N`` (N > 1) runs an ensemble of N
-members (parallel.Ensemble.run_days, each member with its own SPPT seed)
-instead of one model, and adds member-days/min. Needs a CUDA device.
+share, the kernel launches per step and the kernels that take the most
+device time, with the column-physics kernel's share. ``--sppt`` runs the
+model with SPPT on. ``--members N`` (N > 1) runs an ensemble of N members
+(parallel.Ensemble.run_days for the replayed day, each member with its own
+SPPT seed) instead of one model, and reports member-days/min. Needs a CUDA
+device.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import sys
-import time
 
+import numpy as np
 import torch
 
 
@@ -34,77 +40,60 @@ def main(argv=None) -> int:
         print("profile_day: CUDA is not available", file=sys.stderr)
         return 2
 
+    from .bench_step import REPEATS, day_times
+    from .bench_transform import card_line
     from .config import t30
     from .models.model import Model
     from .utils import calendar as cal
     from .utils.synthetic_bc import synthetic_boundaries
 
+    torch.backends.cuda.matmul.allow_tf32 = False
     model = Model(t30(precision=args.precision, sppt_on=args.sppt),
-                  device="cuda",
-                  bc_arrays=synthetic_boundaries(0))
-    start = cal.Datetime(1982, 1, 1)
+                  device="cuda", bc_arrays=synthetic_boundaries(0))
     nsteps, members = model.cfg.nsteps, args.members
-    if members > 1:
-        from .parallel.ensemble import Ensemble
-        ens = Ensemble(model, members)
-        day = lambda s: ens.run_days(s, start, 1)[0]
-        state = day(ens.initialize(start))    # warm-up day
-    else:
-        day = lambda s: model.run_fast(start, 1, state=s)
-        state = model.run_fast(start, 1)      # warm-up day
+    rec = day_times(model, cal.Datetime(1982, 1, 1),
+                    members if members > 1 else None)
+    rate = {k: [members * 60.0 / t for t in rec[k]]
+            for k in ("eager", "replayed")}
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    state = day(state)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t1 = time.perf_counter()
-        day(state)
-        torch.cuda.synchronize()
-        wall_prof = time.perf_counter() - t1
-
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_us = sum(e.time_range.elapsed_us() for e in kernels)
-    by_name = {}
-    for e in kernels:
-        n, t = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
-    k1 = sum(t for name, (n, t) in by_name.items()
-             if "column_physics" in name)
-    from .bench_transform import card_line
     card = card_line()   # name and power limit
+    unit = "sim-days/min" if members == 1 else "member-days/min"
     print(f"{card}: {args.precision} T30{' SPPT' if args.sppt else ''}, "
-          f"{members} member{'s' if members > 1 else ''}, 1 day, "
-          f"{wall / nsteps * 1e3:.3f} ms/step wall "
-          f"({60.0 / wall:.1f} sim-days/min, "
-          f"{members * 60.0 / wall:.1f} member-days/min); profiled "
-          f"{wall_prof / nsteps * 1e3:.3f} ms/step")
-    if not kernels:
-        print("device time: not measured (the profiler saw no CUDA kernels)")
-        return 0
-    busy = dev_us * 1e-6 / wall_prof
-    print(f"device kernel time {dev_us / nsteps / 1e3:.3f} ms/step, busy "
-          f"share {busy:.3f}, {len(kernels) / nsteps:.1f} kernel launches "
-          f"per step; column_physics {k1 / nsteps:.2f} us/step "
-          f"({k1 / dev_us:.4f} of device time)")
-    for name, (n, t) in top:
-        print(f"  {t / nsteps:9.2f} us/step {n / nsteps:6.1f}/step  "
-              f"{name[:90]}")
-    print(json.dumps({"ms_per_step_wall": wall / nsteps * 1e3,
-                      "device_ms_per_step": dev_us / nsteps / 1e3,
-                      "busy_share": busy,
-                      "launches_per_step": len(kernels) / nsteps,
-                      "column_physics_us_per_step": k1 / nsteps,
-                      "column_physics_share": k1 / dev_us,
-                      "members": members,
-                      "member_days_per_min": members * 60.0 / wall,
-                      "sppt": args.sppt, "device": card}))
+          f"{members} member{'s' if members > 1 else ''}; warm-up day and "
+          f"capture {rec['capture_s']:.3f} s, graph pool "
+          f"{rec['pool_bytes'] / 2**20:.1f} MiB")
+    for name in ("eager", "replayed"):
+        r, p = rate[name], rec["profiles"][name]
+        print(f"{name}: {unit} median {np.median(r):.1f} (range "
+              f"{min(r):.1f}-{max(r):.1f}, {REPEATS} days), "
+              f"{np.median(rec[name]) / nsteps * 1e3:.3f} ms/step")
+        if p["busy_share"] is None:
+            print("  device time: not measured (the profiler saw no CUDA "
+                  "kernels)")
+            continue
+        p["busy_share_unprofiled"] = (p["device_ms_per_step"] * nsteps
+                                      * 1e-3 / float(np.median(rec[name])))
+        print(f"  profiled day {p['ms_per_step_profiled']:.3f} ms/step; "
+              f"device kernel time {p['device_ms_per_step']:.3f} ms/step, "
+              f"busy share {p['busy_share']:.3f} of the profiled day, "
+              f"{p['busy_share_unprofiled']:.3f} of the median day, "
+              f"{p['launches_per_step']:.1f} kernel launches per step; "
+              f"column_physics {p['column_physics_us_per_step']:.2f} "
+              f"us/step ({p['column_physics_share']:.4f} of device time)")
+        for kname, n, t in p["top"]:
+            print(f"  {t:9.2f} us/step {n:6.1f}/step  {kname[:90]}")
+    if "predraw_host_s" in rec:
+        print(f"SPPT pre-draw of a day: {rec['predraw_host_s'] * 1e3:.2f} ms "
+              f"host, {rec['predraw_device_s'] * 1e3:.2f} ms device")
+    print(json.dumps({
+        "members": members, "sppt": args.sppt, "precision": args.precision,
+        "repeats": REPEATS, "unit": unit,
+        **{k: v for k, v in rec.items()
+           if k not in ("eager", "replayed", "profiles")},
+        **{f"{k}_rate": v for k, v in rate.items()},
+        **{f"{k}_{f}": v for k, p in rec["profiles"].items()
+           for f, v in p.items() if f != "top"},
+        "device": card}))
     return 0
 
 

@@ -3,7 +3,7 @@
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -21,6 +21,11 @@ class InstabilityError(RuntimeError):
     pass
 
 
+# the guard's accepted range (diagnostics.f90:59-69)
+EKE_MAX = 500.0
+TMEAN_MIN, TMEAN_MAX = 180.0, 320.0
+
+
 def compute_diagnostics(sc: sp.SpectralConsts, vor: torch.Tensor,
                         div: torch.Tensor, t: torch.Tensor) -> Diagnostics:
     """vor/div/t are spectral [..., kx, mx, nx, 2] at one time level
@@ -34,18 +39,41 @@ def compute_diagnostics(sc: sp.SpectralConsts, vor: torch.Tensor,
     return Diagnostics(reke=eke(vor), deke=eke(div), tmean=tmean)
 
 
-def check_diagnostics(diag: Diagnostics, istep: int) -> None:
-    """Host-side guard: abort on instability (diagnostics.f90:59-69)."""
+def check_diagnostics(diag: Diagnostics, istep: int,
+                      unit: str = "step") -> None:
+    """Host-side guard: abort on instability (diagnostics.f90:59-69),
+    naming the ``unit`` (step or day) ``istep``."""
     reke, deke, tmean = (np.asarray(torch.as_tensor(a).cpu())
                          for a in diag)
-    bad = (np.any(reke > 500.0) or np.any(deke > 500.0)
-           or np.any(tmean < 180.0) or np.any(tmean > 320.0)
+    bad = (np.any(reke > EKE_MAX) or np.any(deke > EKE_MAX)
+           or np.any(tmean < TMEAN_MIN) or np.any(tmean > TMEAN_MAX)
            or not (np.all(np.isfinite(reke)) and np.all(np.isfinite(deke))
                    and np.all(np.isfinite(tmean))))
     if bad:
         raise InstabilityError(
-            f"Model variables out of accepted range at step {istep}: "
+            f"Model variables out of accepted range at {unit} {istep}: "
             f"reke={reke}, deke={deke}, temp={tmean}")
+
+
+def guard_extrema(diags: Sequence[Diagnostics]) -> torch.Tensor:
+    """A day's extrema for the guard, [4, ..., kx] on the diagnostics'
+    device: max reke, max deke, min tmean, max tmean over the day's
+    diagnostics (per member of an ensemble)."""
+    stack = lambda f: torch.stack([getattr(d, f) for d in diags])
+    tm = stack("tmean")
+    return torch.stack([stack("reke").amax(dim=0), stack("deke").amax(dim=0),
+                        tm.amin(dim=0), tm.amax(dim=0)])
+
+
+def check_days(guard: np.ndarray, first_day: int = 0) -> None:
+    """The guard on consecutive days' extrema [days, 4, ..., kx]
+    (``guard_extrema`` of each day, on the host), naming the first day
+    out of range, counted from ``first_day``."""
+    for d, g in enumerate(guard):
+        check_diagnostics(Diagnostics(
+            reke=g[0], deke=g[1],
+            tmean=np.where(g[2] < TMEAN_MIN, g[2], g[3])), first_day + d,
+            "day")
 
 
 def format_diagnostics(diag: Diagnostics, istep: int) -> str:

@@ -5,7 +5,8 @@
   ``jax.vmap`` of speedy_tpu's grid_physics_core, T30, 3 members with
   different inputs, SW and non-SW: <= 1e-12 per output (max |port - jax|
   / max |jax|); and at a T21 kx=5 grid against ``jax.vmap`` of the JAX
-  package's Pallas kernel in interpret mode.
+  package's Pallas kernel in interpret mode. The port's chain is
+  bit-equal under 1, 2 and 6 intra-op threads.
 * ``parallel.Ensemble`` against ``speedy_tpu.parallel.ensemble.Ensemble``,
   T30, SPPT on, 3 members, base seed 7, the port fed each member's JAX key
   chain (member i's innovations are jax_noise(PRNGKey(7 + i)), then its
@@ -181,7 +182,8 @@ def jmodel(bc_dir):
 @pytest.fixture(scope="module")
 def physics_outputs(bc, jmodel):
     """Both chains over 3 members at T30, SW then non-SW (the non-SW call
-    carrying each member's SW radiation outputs)."""
+    carrying each member's SW radiation outputs), and the port's inputs
+    (model, daily, booted state, member inputs, carried radiation)."""
     jm, jcfg = jmodel, jmodel.cfg
     js, daily, b = physics_members(jm, M)
     tm = Model(t30(precision="fp64", sppt_on=True), device="cpu",
@@ -192,6 +194,7 @@ def physics_outputs(bc, jmodel):
     carried = jsw[21:25]   # tau2 stratc tt_rsw ssrd
     res[False] = (jax_members(jcfg, jm.pp, False, daily, js, b, carried),
                   port_members(tm, False, daily, js, b, carried))
+    res["inputs"] = (tm, daily, js, b, carried)
     return res
 
 
@@ -211,6 +214,31 @@ def test_physics_members_match_vmapped_jax(physics_outputs, compute_sw):
     cbmf = tout[NAMES.index("cbmf")]
     assert int((cbmf[0] > 0).sum()) > 100
     assert not torch.equal(cbmf[0], cbmf[1])
+
+
+@pytest.mark.parametrize("threads", [1, 2, 6])
+def test_physics_members_independent_of_thread_count(physics_outputs,
+                                                     threads):
+    """The port's chain on the same 3-member inputs under 1, 2 and 6
+    intra-op threads (the Tier-1 run uses 6 workers): bit-equal to the
+    run with the default count, SW and non-SW, and so within the bound of
+    jax.vmap. One CPU run once found member 2 of the SW case ~1e-8 off in
+    one column; a sum whose order followed the thread count would show
+    here."""
+    tm, daily, js, b, carried = physics_outputs["inputs"]
+    default = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        outs = {True: port_members(tm, True, daily, js, b),
+                False: port_members(tm, False, daily, js, b, carried)}
+    finally:
+        torch.set_num_threads(default)
+    for sw, tout in outs.items():
+        jout, ref = physics_outputs[sw]
+        for name, t, r, j in zip(NAMES, tout, ref, jout):
+            assert torch.equal(t, r), (sw, name)
+            for m in range(M):
+                assert rel_err(t[m], j[m]) <= PHYSICS_BOUND, (sw, name, m)
 
 
 def test_physics_members_match_vmapped_pallas_kernel(bc, bc_dir):

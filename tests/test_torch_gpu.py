@@ -21,7 +21,16 @@ from a numpy seed). Ensembles: the column-physics kernel with 1, 8 and 64
 members as extra columns against its plain chain, each member's outputs
 equal to a one-member launch, its refusal of bad member-batched inputs, a
 2-member SPPT ensemble on CUDA against the CPU after boot + 6 fp64 steps,
-and one kernel launch a step whatever the member count.
+and one kernel launch a step whatever the member count. The captured day
+(models/captured.py): a replayed day against the eager run_day on a side
+stream (torch.equal, fp64 and fp32, SPPT off and on, one model and 8
+members), and its output variants' every-step diagnostics and gridded
+fields against run_day's, with the replay under the sync debug mode
+"error"; the K1
+launches of a replayed T30 day in a profiler trace (36, 12 SW) and in the
+launch counters; run_fast, run_days and Model.run with checkpoints
+synchronising only where marked; a checkpoint resumed on the card equal to
+the straight run.
 """
 import ctypes
 import os
@@ -34,6 +43,7 @@ import torch
 from speedy_tpu_torch import bench_physics as bp
 from speedy_tpu_torch.config import from_preset, t30
 from speedy_tpu_torch.geometry import build_geometry_np
+from speedy_tpu_torch.models.captured import leaves
 from speedy_tpu_torch.models.model import Model, one_step
 from speedy_tpu_torch.models.physics import fused
 from speedy_tpu_torch.ops import fused_transforms as ft
@@ -281,6 +291,7 @@ def test_cuda_steps_match_cpu(smoke, bc, sppt_on):
 
 def test_main_path_goes_through_kernel(smoke, bc):
     m = Model(t30(), device="cuda", bc_arrays=bc)
+    smoke.capture_day(m, m.initialize(START), START)
     fused.reset_launches()
     m.run_fast(START, 1)
     assert fused.launches == 2 + m.cfg.nsteps
@@ -341,8 +352,81 @@ def test_ensemble_day_launches_once_per_step(smoke, bc, members):
     m = Model(t30(sppt_on=True), device="cuda", bc_arrays=bc)
     ens = Ensemble(m, members)
     estate = ens.initialize(START)
+    smoke.capture_day(m, estate, START)
     fused.reset_launches()
     estate, _ = ens.run_days(estate, START, 1)
     assert fused.launches == m.cfg.nsteps
     assert fused.launches_sw == m.cfg.nsteps // m.cfg.nstrad
     assert bool(torch.isfinite(estate.prog.vor).all())
+
+
+# ---------------------------------------------------------------------------
+# the captured day
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("members", [None, 8])
+@pytest.mark.parametrize("sppt_on", [False, True])
+@pytest.mark.parametrize("precision", ["fp64", "fp32"])
+def test_replayed_day_equals_eager_day(smoke, bc, precision, sppt_on,
+                                       members):
+    m = Model(t30(precision=precision, sppt_on=sppt_on), device="cuda",
+              bc_arrays=bc)
+    equal, differ, _ = smoke.replay_vs_eager(m, START, members)
+    assert equal, differ
+
+
+@pytest.mark.parametrize("members", [None, 8])
+@pytest.mark.parametrize("grids", [False, True])
+@pytest.mark.parametrize("precision", ["fp64", "fp32"])
+def test_replayed_output_day_equals_eager_day(smoke, bc, precision, grids,
+                                              members):
+    """The output variants (Model.run's without and with a writer,
+    run_days' with writers): the state and every step's diagnostics and,
+    with grids, gridded fields equal run_day's with diagnostics every
+    step."""
+    m = Model(t30(precision=precision, sppt_on=True), device="cuda",
+              bc_arrays=bc)
+    equal, differ, _ = smoke.replay_vs_eager(m, START, members,
+                                             collect_output=True, grids=grids)
+    assert equal, differ
+
+
+def test_replayed_day_holds_the_k1_launches(smoke, bc):
+    m = Model(t30(), device="cuda", bc_arrays=bc)
+    cd, _, _ = smoke.capture_day(m, m.initialize(START), START)
+    nsteps, n_sw = m.cfg.nsteps, m.cfg.nsteps // m.cfg.nstrad
+    assert (cd.k1_launches, cd.k1_launches_sw) == (nsteps, n_sw)
+    fused.reset_launches()
+    assert smoke.k1_in_trace(lambda: cd.advance(0))[:2] == (nsteps, n_sw)
+    assert (fused.launches, fused.launches_sw) == (nsteps, n_sw)
+
+
+@pytest.mark.parametrize("members", [None, 2])
+def test_run_paths_sync_only_where_marked(smoke, bc, members):
+    """run_fast and run_days over 2 days, capture included, under the sync
+    debug mode "error": only the marked synchronisations happen."""
+    m = Model(t30(sppt_on=True), device="cuda", bc_arrays=bc)
+    state, _, _ = smoke.booted(m, START, members)
+    with smoke.sync_error():
+        if members is None:
+            out = m.run_fast(START, 2, state=state, max_chunk_days=1)
+        else:
+            out, _ = Ensemble(m, members).run_days(state, START, 2)
+    assert bool(torch.isfinite(out.prog.vor).all())
+
+
+def test_run_checkpoint_resume_equals_straight_run(smoke, bc, tmp_path):
+    from speedy_tpu_torch.utils.checkpoint import load_checkpoint
+    m = Model(t30(sppt_on=True), device="cuda", bc_arrays=bc)
+    day2 = cal.Datetime(1982, 1, 3)
+    booted = m.initialize(START)
+    with smoke.sync_error():
+        straight = m.run(START, day2, state=booted, verbose=False,
+                         checkpoint_every=1, checkpoint_dir=str(tmp_path))
+    restored, date, step, _ = load_checkpoint(
+        str(tmp_path / "ckpt_198201020000.npz"), m.initialize(START),
+        cfg=m.cfg)
+    resumed = m.run(START, day2, state=restored, resume_date=date,
+                    model_step=step, verbose=False)
+    for a, b in zip(leaves(straight), leaves(resumed), strict=True):
+        assert torch.equal(a, b)
