@@ -5,16 +5,22 @@
 Phases (each prints one line or more; any failure exits non-zero):
  1. the card's name and power limit (nvidia-smi); TF32 off;
  2. build the CUDA kernels from the sources in this checkout, one nvcc
-    process per source, all started together;
+    process per source, all started together (the column-physics library
+    holds 48 kernels: 2 types x 3 kx x SW/non-SW x one model/members x the
+    2 LW orders);
  3. the column-physics kernel's registers and spills per instantiation
     (ptxas); the graph-replay time of one trivial launch (the floor a kernel
     of a few microseconds is read against); then the column-physics kernel
     against its plain PyTorch chain on the card, on the physics inputs of
     the booted state and on the same inputs with seeded noise (the rest
-    state does not convect), SW and non-SW variants, fp64 and fp32, at T30,
-    T85 and T170 (kx=8): the worst field-normalised error against its
-    bound, then the kernel's time (graph replay and eager) against the
-    plain chain's and the bound, and the kernel's share of the bound;
+    state does not convect), SW and non-SW variants, in both LW orders
+    (``vec``, the default, and ``ref``, lw_band_vectorized=False), fp64 and
+    fp32, at T30, T85 and T170 (kx=8): the worst field-normalised error
+    against its bound, whether the ``ref`` kernel's outputs differ from the
+    ``vec`` kernel's (they must in fp32), then the kernel's time (graph
+    replay and eager) against the plain chain's and the bound, and the
+    kernel's share of the bound; then the ``ref`` kernel with 8 members at
+    T30, each member bit-equal to a one-member launch;
  4. boot + 6 steps in fp64 on the CPU (plain physics) and on CUDA (kernel):
     every prognostic field must agree;
  5. the main path: Model(t30(), device="cuda") in fp32, the day captured
@@ -67,7 +73,21 @@ Phases (each prints one line or more; any failure exits non-zero):
     model with SPPT off and on and member-days/min at 8 and 64 members
     (SPPT on), each as the median and range, with the replayed day's
     device time and busy share, the capture's time and its graph pool's
-    size, and at 64 members the SPPT pre-draw's host and device time.
+    size, and at 64 members the SPPT pre-draw's host and device time;
+11. the configuration surface: (a) boot + 6 fp64 steps on the CPU and on
+    CUDA with lw_band_vectorized=False and with sst_anomaly_forcing=True
+    (the stand-in set with its anomaly file); (b) fp32 SST-anomaly forcing
+    from 1982-01-30 over SST_DAYS days, run_fast (replayed, under the sync
+    debug mode "error") against the eager run_day day by day on a side
+    stream, torch.equal in every state leaf, with the anomaly window
+    shifted at 1982-02-01 in both; (c) the main path in the reference LW
+    order: fp32 T30, the day captured first, initialize + run_fast over 2
+    days in the guard, counting the reference-order kernel's launches;
+12. the presets: T85 boot + 6 fp64 steps on the CPU and on CUDA; then fp32
+    runs of PRESET_DAYS replayed days each (T85 2, T42, T63 and T170 1) in
+    the guard, captured first: sim-days/min, wall and device ms/step (CUDA
+    events around the run), K1 launches (days x nsteps), capture seconds
+    and the graph pool's size.
 The last three lines are the kernel table, the card and the result line.
 Runs on the stand-in boundary set (speedy_tpu_torch/utils/synthetic_bc.py).
 """
@@ -102,6 +122,11 @@ TRANSFORM_CASES = (("t30", ("fp64", "fp32"), (1, 7) + tuple(BENCH_BATCHES)),
 SPPT_NOISE_SEED = 12345
 N_TIMED = 100
 ENSEMBLE_SIZES = (8, 64)   # [9] (c), [10] (c)
+REFLW_MEMBERS = 8          # [3] the reference-order kernel with members
+SST_START = (1982, 1, 30)  # [11] (b): SST_DAYS days across a month start
+SST_DAYS = 4
+# [12] replayed fp32 days per preset
+PRESET_DAYS = (("t85", 2), ("t42", 1), ("t63", 1), ("t170", 1))
 RUN_REPEATS = 5            # [8] Model.run without output
 # [10] (a): (precision, SPPT, members, output variant) of the
 # replay-against-eager cases
@@ -116,13 +141,14 @@ def ptxas_summary(log: str):
     lines, name = [], None
     for line in log.splitlines():
         m = re.search(r"Function properties for \S*column_physics_kernelI"
-                      r"([fd])Li(\d)ELb([01])ELb([01])E", line)
+                      r"([fd])Li(\d)ELb([01])ELb([01])ELb([01])E", line)
         t = re.search(r"Function properties for \S*(synthesis|analysis)"
                       r"_kernelI([fd])Li(\d+)ELi(\d+)E(?:Li(\d+)E)?E", line)
         if m:
             name = (f"{'fp32' if m.group(1) == 'f' else 'fp64'} kx={m.group(2)}"
                     f" {'sw' if m.group(3) == '1' else 'nosw'}"
-                    f"{' members' if m.group(4) == '1' else ''}")
+                    f"{' members' if m.group(4) == '1' else ''}"
+                    f"{' reflw' if m.group(5) == '1' else ''}")
         elif t:
             name = f"{t.group(1)} {'fp32' if t.group(2) == 'f' else 'fp64'}"
             second = "TJ" if t.group(1) == "synthesis" else "TM"
@@ -473,19 +499,19 @@ def sync_error():
 
 
 def side_eager_day(model, state, start, noise, collect_output=False,
-                   grids=False):
-    """One day of the module-level run_day (eager), on a side stream, as
-    the captured day runs on one, with diagnostics every
-    ``cfg.diag_every`` steps or, with ``collect_output``, every step, and
-    with ``grids`` every step's gridded fields: run_day's (state,
-    diagnostics, grids)."""
+                   grids=False, date=None):
+    """One day of the module-level run_day (eager) from ``date`` (default
+    ``start``, the run's start), on a side stream, as the captured day
+    runs on one, with diagnostics every ``cfg.diag_every`` steps or, with
+    ``collect_output``, every step, and with ``grids`` every step's
+    gridded fields: run_day's (state, diagnostics, grids)."""
     from speedy_tpu_torch.models.model import run_day
     cfg = model.cfg
     cur, side = torch.cuda.current_stream(), torch.cuda.Stream()
     side.wait_stream(cur)
     with torch.cuda.stream(side):
         out = run_day(cfg, model.pp, model.lsp, model.mc, state,
-                      model.date_scalars(start, start),
+                      model.date_scalars(date or start, start),
                       1 if collect_output else cfg.diag_every, noise,
                       grids)
     cur.wait_stream(side)
@@ -619,6 +645,181 @@ def capture_phase(bc, start, card):
     return ok
 
 
+def steps_cpu_vs_cuda(cfg, bc, start):
+    """Boot + 6 steps of ``cfg`` (fp64) on the CPU and on CUDA: the
+    worst relative difference per prognostic field."""
+    from speedy_tpu_torch.models.model import Model
+    states = {}
+    for dev in ("cpu", "cuda"):
+        m = Model(cfg, device=dev, bc_arrays=bc)
+        st = m.initialize(start)
+        daily = m.daily_forcing(st, start, start)
+        for i in range(6):
+            st, _ = m.one_step(st, daily, i % m.cfg.nstrad == 0)
+        states[dev] = st.prog
+    return {f: ((a - getattr(states["cuda"], f).cpu()).abs().max()
+                / a.abs().max()).item()
+            for f, a in states["cpu"]._asdict().items()}
+
+
+def sst_replay_vs_eager(model, first, days):
+    """``days`` days of an SST-anomaly ``model`` from ``first``: run_fast
+    (replayed, under the sync debug mode "error", capture included)
+    against the module-level run_day day by day on a side stream, with the
+    window reset to ``first``'s and shifted by hand at each later month
+    start. Returns (leaves that differ, whether the window shifted the same
+    in both, end date, seconds of run_fast)."""
+    from speedy_tpu_torch.models.captured import leaves
+    from speedy_tpu_torch.utils import calendar as cal
+    state = model.initialize(first)
+    window0 = model.mc.clim.sstan3.clone()
+    t0 = time.perf_counter()
+    with sync_error():
+        replayed = model.run_fast(first, days, state=state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    window1 = model.mc.clim.sstan3.clone()
+    model.set_anomaly_window(first)
+    eager, date = state, first
+    for _ in range(days):
+        if date.day == 1 and date != first:
+            model.advance_anomaly_window(first, date)
+        eager, _, _ = side_eager_day(model, eager, first, None, date=date)
+        for _ in range(model.cfg.nsteps):
+            date = cal.newdate(date, model.cfg.nsteps)
+    differ = [i for i, (a, b) in enumerate(zip(leaves(replayed),
+                                               leaves(eager)))
+              if not torch.equal(a, b)]
+    shifted = (not torch.equal(window0, window1)
+               and torch.equal(window1[:2], window0[1:])
+               and torch.equal(window1, model.mc.clim.sstan3))
+    return differ, shifted, date, wall
+
+
+def configuration_phase(bc, card):
+    """[11] The reference LW order and SST-anomaly forcing: CPU vs CUDA,
+    the SST run replayed against eager across a month start, and the main
+    path in the reference order. Returns (ok, the reference-order kernel's
+    launches on that path as (all, sw))."""
+    from speedy_tpu_torch.config import t30
+    from speedy_tpu_torch.models.model import Model
+    from speedy_tpu_torch.models.physics import fused
+    from speedy_tpu_torch.utils import calendar as cal
+    from speedy_tpu_torch.utils.synthetic_bc import synthetic_boundaries
+
+    t_phase = time.perf_counter()
+    ok = True
+    start = cal.Datetime(1982, 1, 1)
+    bc_sst = synthetic_boundaries(0, anomaly=True)
+    for label, kw, arrays in (
+            ("lw_band_vectorized=False", dict(lw_band_vectorized=False), bc),
+            ("sst_anomaly_forcing=True", dict(sst_anomaly_forcing=True),
+             bc_sst)):
+        worst = steps_cpu_vs_cuda(t30(precision="fp64", **kw), arrays,
+                                  start)
+        good = max(worst.values()) <= STEP_BOUND
+        ok &= good
+        print(f"[11] {label} fp64 boot+6 steps CPU vs CUDA: "
+              + " ".join(f"{k}={v:.2e}" for k, v in worst.items())
+              + f" (bound {STEP_BOUND:.0e}) {'ok' if good else 'FAILED'}")
+
+    # (b) SST anomalies across 1982-02-01: replayed against eager
+    model = Model(t30(sst_anomaly_forcing=True), device="cuda",
+                  bc_arrays=bc_sst)
+    first = cal.Datetime(*SST_START)
+    differ, shifted, date, wall = sst_replay_vs_eager(model, first,
+                                                      SST_DAYS)
+    good = not differ and shifted and date == cal.Datetime(1982, 2, 3)
+    ok &= good
+    print(f"[11] SST anomalies fp32 T30 from {first.year}-{first.month:02d}-"
+          f"{first.day:02d}, {SST_DAYS} days "
+          f"(run_fast under sync debug mode error, capture included, "
+          f"{wall:.2f} s): replayed vs eager day by day torch.equal "
+          f"{not differ}{f' (leaves {differ} differ)' if differ else ''}; "
+          f"window shifted at 1982-02-01 in both: {shifted} "
+          f"{'ok' if good else 'FAILED'}")
+
+    # (c) the main path in the reference LW order
+    model = Model(t30(lw_band_vectorized=False), device="cuda",
+                  bc_arrays=bc)
+    _, capture_s, pool = capture_day(model, model.initialize(start), start)
+    fused.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = model.initialize(start)
+    t1 = time.perf_counter()
+    state = model.run_fast(start, 2, state=state)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    n, n_sw = fused.launches_reflw, fused.launches_reflw_sw
+    nsteps, nstrad = model.cfg.nsteps, model.cfg.nstrad
+    expect = (2 + 2 * nsteps, 2 + 2 * nsteps // nstrad)
+    finite = all(bool(torch.isfinite(x).all()) for x in state.prog)
+    good = (n, n_sw) == expect and fused.launches == n and finite
+    ok &= good
+    print(f"[11] reference LW order fp32 T30 2 days: "
+          f"{2 / ((t2 - t1) / 60.0):.1f} sim-days/min (run_fast "
+          f"{t2 - t1:.3f} s, initialize {t1 - t0:.3f} s; capture before "
+          f"them {capture_s:.3f} s, graph pool {pool / 2**20:.1f} MiB) on "
+          f"{card}; reference-order K1 launches {n} (sw {n_sw}), expected "
+          f"{expect[0]} ({expect[1]}), of {fused.launches} K1 launches; "
+          f"finite={finite} {'ok' if good else 'FAILED'}")
+    print(f"[11] phase time {time.perf_counter() - t_phase:.1f} s")
+    return ok, (n, n_sw)
+
+
+def presets_phase(bc, card):
+    """[12] T85 CPU vs CUDA in fp64, then PRESET_DAYS replayed fp32 days at
+    T85, T42, T63 and T170 in the guard."""
+    from speedy_tpu_torch.config import from_preset, t85
+    from speedy_tpu_torch.models.model import Model
+    from speedy_tpu_torch.models.physics import fused
+    from speedy_tpu_torch.utils import calendar as cal
+
+    t_phase = time.perf_counter()
+    start = cal.Datetime(1982, 1, 1)
+    worst = steps_cpu_vs_cuda(t85(precision="fp64"), bc, start)
+    ok = max(worst.values()) <= STEP_BOUND
+    print(f"[12] T85 fp64 boot+6 steps CPU vs CUDA: "
+          + " ".join(f"{k}={v:.2e}" for k, v in worst.items())
+          + f" (bound {STEP_BOUND:.0e}) {'ok' if ok else 'FAILED'} "
+          f"({time.perf_counter() - t_phase:.1f} s)")
+    for preset, days in PRESET_DAYS:
+        t_preset = time.perf_counter()
+        model = Model(from_preset(preset), device="cuda", bc_arrays=bc)
+        cfg = model.cfg
+        state = model.initialize(start)
+        _, capture_s, pool = capture_day(model, state, start)
+        fused.reset_launches()
+        begin, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        begin.record()
+        out = model.run_fast(start, days, state=state)
+        end.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps = days * cfg.nsteps
+        finite = all(bool(torch.isfinite(x).all()) for x in out.prog)
+        good = fused.launches == steps and finite
+        ok &= good
+        print(f"[12] {preset} fp32 ({cfg.ix}x{cfg.il}x{cfg.kx}, "
+              f"{cfg.nsteps} steps a day), {days} replayed day"
+              f"{'s' if days > 1 else ''} in the guard: "
+              f"{days / (wall / 60.0):.2f} sim-days/min, "
+              f"{wall / steps * 1e3:.3f} ms/step, device "
+              f"{begin.elapsed_time(end) / steps:.3f} ms/step (CUDA events "
+              f"around run_fast); K1 launches {fused.launches} (sw "
+              f"{fused.launches_sw}), expected {steps}; warm-up day and "
+              f"capture {capture_s:.2f} s, graph pool {pool / 2**20:.1f} "
+              f"MiB; finite={finite} on {card} "
+              f"({time.perf_counter() - t_preset:.1f} s) "
+              f"{'ok' if good else 'FAILED'}")
+        del model, state, out
+    print(f"[12] phase time {time.perf_counter() - t_phase:.1f} s")
+    return ok
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -642,7 +843,8 @@ def main() -> int:
     native.build_all(libs)
     print(f"[2] built {', '.join(libs)} in {time.perf_counter() - t0:.1f} s "
           "(nvcc " + ", ".join(f"{n} {native.build_seconds.get(n, 0.0):.1f} s"
-                               for n in libs) + ")")
+                               for n in libs)
+          + "; column_physics with both LW orders, 48 kernels)")
     for line in ptxas_summary(native.build_log.get("spectral_transforms",
                                                     "")):
         print("    ptxas:", line)
@@ -656,47 +858,55 @@ def main() -> int:
           f"{bench_physics.floor_ms(N_TIMED) * 1e3:.3f} us/call")
     rows = {}
     ok = True
+    t_phase = time.perf_counter()
     for rec in bench_physics.run():
-        preset, prec, variant = rec["preset"], rec["precision"], rec["variant"]
+        preset, prec = rec["preset"], rec["precision"]
+        variant, order = rec["variant"], rec["order"]
         for r in rec["checks"]:
             per = "" if preset != "t30" else " | " + " ".join(
                 f"{n}={e[0]:.1e}" for n, e in zip(OUTPUT_NAMES, r["errors"]))
-            print(f"[3] {preset} {prec} {variant} {r['case']} "
+            print(f"[3] {preset} {prec} {variant} {order} {r['case']} "
                   f"({r['convecting']} convecting columns): worst "
                   f"{r['worst']:.3e} (bound {rec['bound']:.0e}) "
                   f"finite={r['finite']}{per}")
             for v, name, (j, i) in r["columns"]:
                 print(f"    column lat={j} lon={i}: {name} {v:.3e}")
         ok &= bench_physics.passed(rec)
-        print(f"[3] {preset} {prec} {variant}: kernel "
+        differs = "" if order == "vec" else (
+            f", differs from the vec kernel: {rec['differs_from_vec']}")
+        print(f"[3] {preset} {prec} {variant} {order}{differs}: kernel "
               f"{rec['kernel_graph_us']:.3f} us/call (graph), "
               f"{rec['kernel_eager_us']:.1f} us/call (eager), plain "
               f"{rec['plain_us'] * 1e-3:.3f} ms/call, bound "
               f"{rec['bound_us']:.3f} us ({rec['bound_by']}), share of the "
               f"bound {rec['share']:.1%}")
-        rows[(preset, prec, variant)] = dict(
+        rows[(preset, prec, variant, order)] = dict(
             ms=rec["kernel_graph_us"] * 1e-3, plain_ms=rec["plain_us"] * 1e-3,
             bound_ms=rec["bound_us"] * 1e-3, bound_by=rec["bound_by"],
             max_abs_err=rec["max_abs_err"])
+    # the reference-order kernel with members
+    for prec in ("fp64", "fp32"):
+        m = Model(t30(precision=prec), device="cuda", bc_arrays=bc)
+        for sw in (True, False):
+            _, _, rec = bench_physics.check_members(
+                m, sw, REFLW_MEMBERS, bench_physics.with_order(m.cfg, "ref"))
+            rec.update(bound=bench_physics.error_bound(m.cfg.rdtype),
+                       precision=prec)
+            good = bench_physics.passed(rec)
+            ok &= good
+            print(f"[3] t30 {prec} {'sw' if sw else 'nosw'} ref "
+                  f"{REFLW_MEMBERS} members: worst {rec['worst']:.3e} (bound "
+                  f"{rec['bound']:.0e}) finite={rec['finite']} members equal "
+                  f"one-member launches={rec['members_equal_single']} "
+                  f"{'ok' if good else 'FAILED'}")
+    print(f"[3] phase time {time.perf_counter() - t_phase:.1f} s")
     if not ok:
         print("[3] FAILED: kernel disagrees with the plain chain")
         return 1
 
     # [4] CPU vs CUDA, boot + 6 steps, fp64
     start = cal.Datetime(1982, 1, 1)
-    worst = {}
-    states = {}
-    for name in ("cpu", "cuda"):
-        m = Model(t30(precision="fp64"), device=name, bc_arrays=bc)
-        s = m.initialize(start)
-        daily = m.daily_forcing(s, start, start)
-        for i in range(6):
-            s, _ = m.one_step(s, daily, i % m.cfg.nstrad == 0)
-        states[name] = s.prog
-    for f in states["cpu"]._fields:
-        a = getattr(states["cpu"], f)
-        b = getattr(states["cuda"], f).cpu()
-        worst[f] = ((a - b).abs().max() / a.abs().max()).item()
+    worst = steps_cpu_vs_cuda(t30(precision="fp64"), bc, start)
     step_ok = max(worst.values()) <= STEP_BOUND
     print(f"[4] fp64 boot+6 steps CPU vs CUDA: "
           + " ".join(f"{k}={v:.2e}" for k, v in worst.items())
@@ -752,13 +962,23 @@ def main() -> int:
     if not capture_phase(bc, start, card):
         print("[10] FAILED")
         return 1
+    c_ok, (n_ref, n_ref_sw) = configuration_phase(bc, card)
+    if not c_ok:
+        print("[11] FAILED")
+        return 1
+    if not presets_phase(bc, card):
+        print("[12] FAILED")
+        return 1
 
     kernels = []
-    for variant, launches in (("sw", n_launch_sw),
-                              ("nosw", n_launch - n_launch_sw)):
-        r = rows[("t30", "fp32", variant)]
+    for variant, order, launches in (
+            ("sw", "vec", n_launch_sw),
+            ("nosw", "vec", n_launch - n_launch_sw),
+            ("sw", "ref", n_ref_sw), ("nosw", "ref", n_ref - n_ref_sw)):
+        r = rows[("t30", "fp32", variant, order)]
+        suffix = "_reflw" if order == "ref" else ""
         kernels.append(dict(
-            name=f"column_physics_{variant}", route="cuda",
+            name=f"column_physics_{variant}{suffix}", route="cuda",
             source="speedy_tpu_torch/csrc/column_physics.cu",
             replaces="speedy_tpu/models/physics/fused.py:87",
             launches=launches, max_abs_err=r["max_abs_err"], ms=r["ms"],

@@ -1,16 +1,22 @@
 """The column-physics kernel against its plain PyTorch chain on the card.
 
-    python -m speedy_tpu_torch.bench_physics
+    python -m speedy_tpu_torch.bench_physics [--orders vec,ref]
 
-For each preset of K1_PRESETS (kx=8) and each type it builds the model on the card from the
-stand-in boundary set, takes the physics inputs of the booted state and
-the same inputs with seeded noise (the booted rest state does not
-convect), and for the SW and the non-SW variant prints one JSON line: the
-worst field-normalised error of the kernel against the plain chain over
-both input sets, whether every output is finite, the kernel's time per
-call as a CUDA-graph replay of REPS calls and over REPS eager calls, the
-plain chain's eager time, the least time the card could take for the call
-(bound) and the kernel's share of it. It first prints the graph-replay time
+For each preset of K1_PRESETS (kx=8) and each type it builds the model on
+the card from the stand-in boundary set, takes the physics inputs of the
+booted state and the same inputs with seeded noise (the booted rest state
+does not convect), and for the SW and the non-SW variant, in each LW order
+(ORDERS: ``vec`` the band-vectorized sweeps, the default; ``ref`` the
+reference-order ones of ``lw_band_vectorized=False``), prints one JSON
+line: the worst field-normalised error of the kernel against the plain
+chain of the same order over both input sets, whether every output is
+finite, the kernel's time per call as a CUDA-graph replay of REPS calls
+and over REPS eager calls, the plain chain's eager time, the least time
+the card could take for the call (bound, the same bytes in both orders)
+and the kernel's share of it; for ``ref``, also whether its outputs on the
+perturbed inputs differ from the ``vec`` kernel's (``differs_from_vec``:
+the two orders round differently, so equal outputs would mean the order
+never reached the kernel). It first prints the graph-replay time
 of one trivial launch (a one-element in-place add), the floor against which
 a kernel of a few microseconds is read, and the card's name and power
 limit. Then, for an ensemble's members as extra columns of one launch
@@ -23,10 +29,13 @@ bound. Needs a CUDA device and refuses to run without one.
 The script reads only what every version of the kernel's wrapper has
 (``fused.kernel_inputs``, ``launch_kernel``, ``plain_outputs``), so run as a
 file with another checkout's package first on ``PYTHONPATH`` it times that
-checkout's kernel.
+checkout's kernel; ``--orders vec`` keeps to the order every version has
+(the default kernel against a parent's, in turns).
 """
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import json
 import math
 import sys
@@ -41,6 +50,7 @@ FP64_BOUND = 1e-12        # field-normalised, kernel vs plain, fp64
 FP32_BOUND = 1e-4         # field-normalised, kernel vs plain, fp32
 K1_PRESETS = ("t30", "t85", "t170")
 PRECISIONS = ("fp64", "fp32")
+ORDERS = ("vec", "ref")   # the LW orders: lw_band_vectorized True, False
 MEMBER_COUNTS = (1, 8, 64)
 REPS = 100
 PLAIN_REPS = 20           # the plain chain is host-bound: fewer calls do
@@ -174,14 +184,20 @@ def floor_ms(reps: int) -> float:
     return time_graph_ms(lambda: x.add_(1.0), reps)
 
 
-def check_case(model, compute_sw):
+def with_order(cfg, order: str):
+    """``cfg`` in LW order ``order`` (ORDERS)."""
+    return dataclasses.replace(cfg, lw_band_vectorized=(order == "vec"))
+
+
+def check_case(model, compute_sw, cfg=None):
     """The kernel against the plain chain on the booted and the perturbed
-    inputs. Returns (perturbed inputs, argument block, rows): one row per
-    input set with the worst field-normalised error, the largest absolute
-    error, the per-output errors, whether every output is finite and the
-    number of convecting columns."""
+    inputs, both in the LW order of ``cfg`` (default: the model's).
+    Returns (perturbed inputs, argument block, rows): one row per input set
+    with the worst field-normalised error, the largest absolute error, the
+    per-output errors, whether every output is finite and the number of
+    convecting columns."""
     from speedy_tpu_torch.models.physics import fused
-    cfg = model.cfg
+    cfg = cfg or model.cfg
     booted, block = physics_case(model, compute_sw)
     rows = []
     for case, ins in (("booted", booted), ("perturbed", perturb(booted))):
@@ -200,10 +216,11 @@ def check_case(model, compute_sw):
     return ins, block, rows
 
 
-def time_case(model, compute_sw, ins, block, reps):
-    """(graph ms, eager ms, plain ms, bound ms, bound by) of one call."""
+def time_case(model, compute_sw, ins, block, reps, cfg=None):
+    """(graph ms, eager ms, plain ms, bound ms, bound by) of one call in
+    the LW order of ``cfg`` (default: the model's)."""
     from speedy_tpu_torch.models.physics import fused
-    cfg = model.cfg
+    cfg = cfg or model.cfg
     call = lambda: fused.launch_kernel(cfg, compute_sw, ins, block)
     ms = time_graph_ms(call, reps)
     eager_ms = time_ms(call, reps)
@@ -216,12 +233,13 @@ def time_case(model, compute_sw, ins, block, reps):
     return ms, eager_ms, plain_ms, b_ms, b_by
 
 
-def run():
-    """One record per (preset, precision, variant) of K1_PRESETS x
-    PRECISIONS x (SW, non-SW), with the check of each input set
-    (``checks``, check_case's rows)."""
+def run(orders=ORDERS):
+    """One record per (preset, precision, variant, LW order) of K1_PRESETS x
+    PRECISIONS x (SW, non-SW) x ``orders``, with the check of each input
+    set (``checks``, check_case's rows)."""
     from speedy_tpu_torch.config import from_preset
     from speedy_tpu_torch.models.model import Model
+    from speedy_tpu_torch.models.physics import fused
     from speedy_tpu_torch.utils.synthetic_bc import synthetic_boundaries
     bc = synthetic_boundaries(0)
     records = []
@@ -229,13 +247,23 @@ def run():
         for prec in PRECISIONS:
             model = Model(from_preset(preset, precision=prec),
                           device="cuda", bc_arrays=bc)
-            for sw in (True, False):
-                ins, block, rows = check_case(model, sw)
+            for sw, order in ((sw, o) for sw in (True, False)
+                              for o in orders):
+                cfg = with_order(model.cfg, order)
+                ins, block, rows = check_case(model, sw, cfg)
                 ms, eager_ms, plain_ms, b_ms, b_by = time_case(
-                    model, sw, ins, block, REPS)
+                    model, sw, ins, block, REPS, cfg)
+                differs = None
+                if order != "vec":
+                    vec = fused.launch_kernel(with_order(cfg, "vec"), sw,
+                                              ins, block)
+                    mine = fused.launch_kernel(cfg, sw, ins, block)
+                    differs = any(not torch.equal(a, b)
+                                  for a, b in zip(mine, vec))
                 records.append(dict(
                     preset=preset, precision=prec, kx=model.cfg.kx,
-                    variant="sw" if sw else "nosw",
+                    variant="sw" if sw else "nosw", order=order,
+                    differs_from_vec=differs,
                     worst=max(r["worst"] for r in rows),
                     bound=error_bound(model.cfg.rdtype),
                     max_abs_err=max(r["max_abs_err"] for r in rows),
@@ -250,13 +278,14 @@ def run():
     return records
 
 
-def check_members(model, compute_sw, members):
+def check_members(model, compute_sw, members, cfg=None):
     """The kernel over ``members`` members (member_inputs of the perturbed
     inputs) against the plain chain on the same inputs, and each member's
     outputs against a one-member launch on that member's inputs (equal:
-    each column runs the same code). Returns (inputs, block, record)."""
+    each column runs the same code), in the LW order of ``cfg`` (default:
+    the model's). Returns (inputs, block, record)."""
     from speedy_tpu_torch.models.physics import fused
-    cfg = model.cfg
+    cfg = cfg or model.cfg
     booted, block = physics_case(model, compute_sw)
     ins = member_inputs(booted, members)
     kout = fused.launch_kernel(cfg, compute_sw, ins, block)
@@ -308,12 +337,22 @@ def run_members(preset="t30"):
 
 
 def passed(rec) -> bool:
+    """Within the bound and finite; members equal to one-member launches;
+    a reference-order launch in fp32 differs from the default order's."""
     return (rec["worst"] <= rec["bound"] and rec["finite"]
             and rec.get("members_equal_single", True)
-            and rec.get("shapes_ok", True))
+            and rec.get("shapes_ok", True)
+            and not (rec.get("order") == "ref" and rec["precision"] == "fp32"
+                     and not rec["differs_from_vec"]))
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--orders", default=",".join(ORDERS),
+                    help="LW orders to run, of " + ", ".join(ORDERS))
+    orders = ap.parse_args(argv).orders.split(",")
+    if not set(orders) <= set(ORDERS):
+        ap.error(f"orders must be of {ORDERS}")
     if not torch.cuda.is_available():
         print("bench_physics: CUDA is not available", file=sys.stderr)
         return 2
@@ -322,7 +361,7 @@ def main() -> int:
     print(json.dumps(dict(card=card_line(),
                           trivial_graph_us=floor_ms(REPS) * 1e3)))
     ok = True
-    for rec in run() + run_members():
+    for rec in run(orders) + run_members():
         ok &= passed(rec)
         print(json.dumps({k: v for k, v in rec.items() if k != "checks"}))
     # the kernel was built at its first launch

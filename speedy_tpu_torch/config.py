@@ -3,8 +3,8 @@
 The same frozen dataclass and presets as the JAX package's ``config.py``,
 without JAX: ``rdtype`` is a ``torch.dtype``. The knobs that only shaped
 the TPU build (``synthesis_split``, ``tables_bf16``, ``scan_unroll``,
-``fuse_physics``) are accepted and ignored; the options this package does
-not implement yet are refused by ``check_supported``.
+``fuse_physics``) are accepted and ignored; ``check_supported`` refuses
+what the JAX package's ``Model`` refuses too.
 """
 from __future__ import annotations
 
@@ -107,14 +107,13 @@ class ModelConfig:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Refuse the options this package does not implement yet.
-    ``n_ensemble`` is accepted and, as in the JAX package, not read:
-    parallel.Ensemble takes its member count."""
-    for on, what in ((cfg.sst_anomaly_forcing, "sst_anomaly_forcing=True"),
-                     (not cfg.lw_band_vectorized, "lw_band_vectorized=False"),
-                     (cfg.sea_coupling_flag >= 1, "sea_coupling_flag>=1")):
-        if on:
-            raise NotImplementedError(f"{what} is not implemented")
+    """Refuse ``sea_coupling_flag >= 1``, as the JAX package's ``Model``
+    does (the reference stops there too, sea_model.f90:188-190); every
+    other option is implemented. ``n_ensemble`` is accepted and, as in the
+    JAX package, not read: parallel.Ensemble takes its member count."""
+    if cfg.sea_coupling_flag >= 1:
+        raise NotImplementedError(
+            "sea_coupling_flag >= 1 not implemented (reference stops too)")
 
 
 def t30(**kw) -> ModelConfig:

@@ -63,7 +63,19 @@
 // Shared memory is one row of 32 values (+16 bytes against bank
 // conflicts) per staged input, output and work row: 36-40 KB in fp32,
 // 68-75 KB in fp64 at kx=8 (opted in above 48 KB). Templates cover
-// fp32/fp64, kx in {5, 7, 8} and the SW / non-SW variants.
+// fp32/fp64, kx in {5, 7, 8}, the SW / non-SW variants and the two LW
+// orders.
+//
+// The two LW orders. grid_physics_core takes the band-vectorized LW sweeps
+// (longwave.py *_vec, the default) or, with lw_band_vectorized=False, the
+// reference-order pair (downward_longwave, upward_longwave), which adds each
+// band's +f and -f_new into a level's absorbed flux one after another
+// instead of adding the four bands' sum. The sums round differently, and the
+// JAX package found the difference to change the 90-day stability at T85, so
+// the option is a variant of its own: the REFLW instantiations keep a
+// walker's per-level accumulators in registers (kx <= 8, unrolled) and add
+// in the reference's order. Only the two LW walker phases differ, through
+// `if constexpr`: the default instantiations are the code they were.
 //
 // Ensembles. The JAX package vmaps the Pallas call over an ensemble's
 // members. Here the members are extra columns of one launch: the grid's
@@ -674,9 +686,10 @@ __device__ __forceinline__ void walk_shortwave(const ColumnTables<T>& c,
   at(L::STRATC + 1, col) = c.eps1 * psg;
 }
 
-// LW down (longwave.py downward_longwave_vec): writes the levels' dfabs
-// into the LW rows, slrd, and the four band fluxes at the surface.
-template <typename T, int KX, bool SW>
+// LW down (longwave.py downward_longwave_vec, or with REFLW
+// downward_longwave): writes the levels' dfabs into the LW rows, slrd, and
+// the four band fluxes at the surface.
+template <typename T, int KX, bool SW, bool REFLW>
 __device__ __forceinline__ void walk_lw_down(Tile<T> at, int col) {
   using L = Layout<KX, SW>;
   auto tau = [&](int b, int k) { return at(L::TAU2_LW + b * KX + k, col); };
@@ -691,20 +704,30 @@ __device__ __forceinline__ void walk_lw_down(Tile<T> at, int col) {
     }
   }
   flux[2] = flux[3] = T(0.0);
-  at(L::LW, col) = -(flux[0] + flux[1]);
+  if constexpr (REFLW) at(L::LW, col) = (-flux[0]) - flux[1];
+  else at(L::LW, col) = -(flux[0] + flux[1]);
   T dfa_last = T(0.0);
 #pragma unroll
   for (int k = 1; k < KX; ++k) {
     const T s1 = at(L::ST4A1 + k, col), s2 = at(L::ST4A2 + k, col);
+    // the reference's order: 0, then +f and -f_new band after band
+    T acc = T(0.0);
     const T dfa = band_sum(flux);
 #pragma unroll
     for (int b = 0; b < 4; ++b) {
       const T emis = T(1.0) - tau(b, k);
       const T brad = fb(b, k) * (s1 + emis * s2);
+      if constexpr (REFLW) acc = acc + flux[b];
       flux[b] = tau(b, k) * flux[b] + emis * brad;
+      if constexpr (REFLW) acc = acc - flux[b];
     }
-    if (k < KX - 1) at(L::LW + k, col) = dfa - band_sum(flux);
-    else dfa_last = dfa - band_sum(flux);
+    if constexpr (REFLW) {
+      if (k < KX - 1) at(L::LW + k, col) = acc;
+      else dfa_last = acc;
+    } else {
+      if (k < KX - 1) at(L::LW + k, col) = dfa - band_sum(flux);
+      else dfa_last = dfa - band_sum(flux);
+    }
   }
   T slrd = T(EMISFC) * band_sum(flux);
   const T corlw = T(EPSLW * EMISFC) * at(L::ST4A1 + KX - 1, col);
@@ -716,9 +739,9 @@ __device__ __forceinline__ void walk_lw_down(Tile<T> at, int col) {
 }
 
 // Surface fluxes and land skin temperature (surface.py), then LW up
-// (longwave.py upward_longwave_vec); turns the LW rows into each level's
-// LW heating rate.
-template <typename T, int KX, bool SW>
+// (longwave.py upward_longwave_vec, or with REFLW upward_longwave); turns
+// the LW rows into each level's LW heating rate.
+template <typename T, int KX, bool SW, bool REFLW>
 __device__ __forceinline__ void walk_surface_lw_up(const ColumnTables<T>& c,
                                                    Tile<T> at, int col) {
   using L = Layout<KX, SW>;
@@ -823,9 +846,17 @@ __device__ __forceinline__ void walk_surface_lw_up(const ColumnTables<T>& c,
 #pragma unroll
   for (int b = 0; b < 4; ++b)
     fl[b] = fb[b] * fsfcu + T(1.0 - EMISFC) * at(L::FLUX + b, col);
+  // with REFLW, dfa_add[k] is the level's whole absorbed flux, carried on
+  // from the LW down sweep's, and takes the reference's adds one by one
+  if constexpr (REFLW) {
 #pragma unroll
-  for (int k = 0; k < KX; ++k) dfa_add[k] = T(0.0);
-  dfa_add[KX - 1] = T(EPSLW) * fsfcu;
+    for (int k = 0; k < KX; ++k) dfa_add[k] = at(L::LW + k, col);
+    dfa_add[KX - 1] = dfa_add[KX - 1] + T(EPSLW) * fsfcu;
+  } else {
+#pragma unroll
+    for (int k = 0; k < KX; ++k) dfa_add[k] = T(0.0);
+    dfa_add[KX - 1] = T(EPSLW) * fsfcu;
+  }
 #pragma unroll
   for (int k = KX - 1; k >= 1; --k) {
     const T s1 = at(L::ST4A1 + k, col), s2 = at(L::ST4A2 + k, col);
@@ -834,9 +865,11 @@ __device__ __forceinline__ void walk_surface_lw_up(const ColumnTables<T>& c,
     for (int b = 0; b < 4; ++b) {
       const T emis = T(1.0) - tau(b, k);
       const T brad = at(L::FB + b * KX + k, col) * (s1 - emis * s2);
+      if constexpr (REFLW) dfa_add[k] = dfa_add[k] + fl[b];
       fl[b] = tau(b, k) * fl[b] + emis * brad;
+      if constexpr (REFLW) dfa_add[k] = dfa_add[k] - fl[b];
     }
-    dfa_add[k] = dfa_add[k] + pre - band_sum(fl);
+    if constexpr (!REFLW) dfa_add[k] = dfa_add[k] + pre - band_sum(fl);
   }
   {
     const T s1 = at(L::ST4A1, col), s2 = at(L::ST4A2, col);
@@ -845,9 +878,11 @@ __device__ __forceinline__ void walk_surface_lw_up(const ColumnTables<T>& c,
     for (int b = 0; b < 2; ++b) {
       const T emis = T(1.0) - tau(b, 0);
       const T brad = at(L::FB + b * KX, col) * (s1 - emis * s2);
+      if constexpr (REFLW) dfa_add[0] = dfa_add[0] + fl[b];
       fl[b] = tau(b, 0) * fl[b] + emis * brad;
+      if constexpr (REFLW) dfa_add[0] = dfa_add[0] - fl[b];
     }
-    dfa_add[0] = dfa_add[0] + pre - (fl[0] + fl[1]);
+    if constexpr (!REFLW) dfa_add[0] = dfa_add[0] + pre - (fl[0] + fl[1]);
   }
   const T stratc0 = at(SW ? L::STRATC : L::STRATC_IN, col);
   const T stratc1 = at((SW ? L::STRATC : L::STRATC_IN) + 1, col);
@@ -855,14 +890,21 @@ __device__ __forceinline__ void walk_surface_lw_up(const ColumnTables<T>& c,
   const T corlw2 = c.tab[DHS][1] * stratc1 * at(L::ST4A1 + 1, col);
   dfa_add[0] = dfa_add[0] - corlw1;
   dfa_add[1] = dfa_add[1] - corlw2;
-  at(L::OLR, col) = corlw1 + corlw2 + band_sum(fl);
+  if constexpr (REFLW) {
+    at(L::OLR, col) = corlw1 + corlw2 + fl[0] + fl[1] + fl[2] + fl[3];
 #pragma unroll
-  for (int k = 0; k < KX; ++k)
-    at(L::LW + k, col) =
-        (at(L::LW + k, col) + dfa_add[k]) * rps * c.tab[GRDSCP][k];
+    for (int k = 0; k < KX; ++k)
+      at(L::LW + k, col) = dfa_add[k] * rps * c.tab[GRDSCP][k];
+  } else {
+    at(L::OLR, col) = corlw1 + corlw2 + band_sum(fl);
+#pragma unroll
+    for (int k = 0; k < KX; ++k)
+      at(L::LW + k, col) =
+          (at(L::LW + k, col) + dfa_add[k]) * rps * c.tab[GRDSCP][k];
+  }
 }
 
-template <typename T, int KX, bool SW, bool MEMBERS>
+template <typename T, int KX, bool SW, bool MEMBERS, bool REFLW>
 // fp64: at most 80 registers, so that three blocks share an SM (fp32
 // fits four blocks without a cap)
 __global__ void __launch_bounds__(kThreads, sizeof(T) == 8 ? 3 : 1)
@@ -936,18 +978,18 @@ column_physics_kernel(const __grid_constant__ ParamsOf<T, MEMBERS> p) {
 
   // convection beside (non-SW steps) LW down, which needs nothing of it
   if (warp == 0) walk_convection<T, KX, SW>(c, at, lane);
-  if (!SW && warp == 1) walk_lw_down<T, KX, SW>(at, lane);
+  if (!SW && warp == 1) walk_lw_down<T, KX, SW, REFLW>(at, lane);
   __syncthreads();
 
   if constexpr (SW) {
     if (lev) level_transmissivities<T, KX>(c, at, lc, k, psg);
     __syncthreads();
     if (warp == 0) walk_shortwave<T, KX>(c, at, lane);
-    if (warp == 1) walk_lw_down<T, KX, SW>(at, lane);
+    if (warp == 1) walk_lw_down<T, KX, SW, REFLW>(at, lane);
     __syncthreads();
   }
 
-  if (warp == 0) walk_surface_lw_up<T, KX, SW>(c, at, lane);
+  if (warp == 0) walk_surface_lw_up<T, KX, SW, REFLW>(c, at, lane);
   __syncthreads();
 
   if (lev)
@@ -980,7 +1022,7 @@ constexpr int output_rows(int i) {
        : i == 21 ? 4 * KX : i == 22 ? 2 : i == 23 ? KX : 1;
 }
 
-template <typename T, int KX, bool SW, bool MEMBERS>
+template <typename T, int KX, bool SW, bool MEMBERS, bool REFLW>
 cudaError_t launch(int members, const void* const* ins,
                    const long long* in_mstride, void* const* outs,
                    const double* block, int il, int ix, cudaStream_t stream) {
@@ -1034,7 +1076,7 @@ cudaError_t launch(int members, const void* const* ins,
     if (err != cudaSuccess) return err;
     if (dev >= 32) return cudaErrorInvalidDevice;
     if (!((opted_in >> dev) & 1u)) {
-      err = cudaFuncSetAttribute(column_physics_kernel<T, KX, SW, MEMBERS>,
+      err = cudaFuncSetAttribute(column_physics_kernel<T, KX, SW, MEMBERS, REFLW>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  smem);
       if (err != cudaSuccess) return err;
@@ -1042,35 +1084,47 @@ cudaError_t launch(int members, const void* const* ins,
     }
   }
   const dim3 blocks((p.S + kCols - 1) / kCols, members);
-  column_physics_kernel<T, KX, SW, MEMBERS>
+  column_physics_kernel<T, KX, SW, MEMBERS, REFLW>
       <<<blocks, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T, int KX>
+template <typename T, int KX, bool REFLW>
 cudaError_t launch_sw(int sw, int members, const void* const* ins,
                       const long long* ms, void* const* outs,
                       const double* block, int il, int ix, cudaStream_t st) {
   // one model (or one member) takes the kernel without member strides
   if (members > 1)
-    return sw ? launch<T, KX, true, true>(members, ins, ms, outs, block, il,
-                                          ix, st)
-              : launch<T, KX, false, true>(members, ins, ms, outs, block, il,
-                                           ix, st);
-  return sw ? launch<T, KX, true, false>(members, ins, ms, outs, block, il,
-                                         ix, st)
-            : launch<T, KX, false, false>(members, ins, ms, outs, block, il,
-                                          ix, st);
+    return sw ? launch<T, KX, true, true, REFLW>(members, ins, ms, outs,
+                                                 block, il, ix, st)
+              : launch<T, KX, false, true, REFLW>(members, ins, ms, outs,
+                                                  block, il, ix, st);
+  return sw ? launch<T, KX, true, false, REFLW>(members, ins, ms, outs, block,
+                                                il, ix, st)
+            : launch<T, KX, false, false, REFLW>(members, ins, ms, outs,
+                                                 block, il, ix, st);
+}
+
+template <typename T, int KX>
+cudaError_t launch_order(int reflw, int sw, int members,
+                         const void* const* ins, const long long* ms,
+                         void* const* outs, const double* block, int il,
+                         int ix, cudaStream_t st) {
+  return reflw ? launch_sw<T, KX, true>(sw, members, ins, ms, outs, block, il,
+                                        ix, st)
+               : launch_sw<T, KX, false>(sw, members, ins, ms, outs, block,
+                                         il, ix, st);
 }
 
 template <typename T>
-cudaError_t launch_kx(int kx, int sw, int members, const void* const* ins,
-                      const long long* ms, void* const* outs,
-                      const double* block, int il, int ix, cudaStream_t st) {
+cudaError_t launch_kx(int kx, int reflw, int sw, int members,
+                      const void* const* ins, const long long* ms,
+                      void* const* outs, const double* block, int il, int ix,
+                      cudaStream_t st) {
   switch (kx) {
-    case 5: return launch_sw<T, 5>(sw, members, ins, ms, outs, block, il, ix, st);
-    case 7: return launch_sw<T, 7>(sw, members, ins, ms, outs, block, il, ix, st);
-    case 8: return launch_sw<T, 8>(sw, members, ins, ms, outs, block, il, ix, st);
+    case 5: return launch_order<T, 5>(reflw, sw, members, ins, ms, outs, block, il, ix, st);
+    case 7: return launch_order<T, 7>(reflw, sw, members, ins, ms, outs, block, il, ix, st);
+    case 8: return launch_order<T, 8>(reflw, sw, members, ins, ms, outs, block, il, ix, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1083,7 +1137,8 @@ int layout_smem(int sw) {
 }  // namespace
 
 // C interface. members: the ensemble's member count (1 for one model);
-// ins/outs: host arrays of 27 device pointers in the order of
+// reflw: 1 for the reference-order LW sweeps (lw_band_vectorized=False),
+// 0 for the band-vectorized ones; ins/outs: host arrays of 27 device pointers in the order of
 // fused.kernel_inputs / fused.output_shapes (unused slots may be null),
 // member 0's data; in_mstride: per input, the elements from one member's
 // data to the next (0 where all members share it); outputs are
@@ -1091,16 +1146,17 @@ int layout_smem(int sw) {
 // fused.argument_block. Returns the cudaError_t of the launch (0 on
 // success). Does not synchronise.
 extern "C" int column_physics_launch(int f64, int kx, int sw, int members,
-                                     int il, int ix, const void* const* ins,
+                                     int reflw, int il, int ix,
+                                     const void* const* ins,
                                      const long long* in_mstride,
                                      void* const* outs, const double* block,
                                      void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err =
-      f64 ? launch_kx<double>(kx, sw, members, ins, in_mstride, outs, block,
-                              il, ix, st)
-          : launch_kx<float>(kx, sw, members, ins, in_mstride, outs, block,
-                             il, ix, st);
+      f64 ? launch_kx<double>(kx, reflw, sw, members, ins, in_mstride, outs,
+                              block, il, ix, st)
+          : launch_kx<float>(kx, reflw, sw, members, ins, in_mstride, outs,
+                             block, il, ix, st);
   return static_cast<int>(err);
 }
 

@@ -18,8 +18,10 @@ same staged day runs eagerly.
 
 The graph bakes in the addresses it read at capture: the static buffers
 and every constant of ``model.mc``, ``model.pp`` and ``model.lsp``.
-Anything that later replaces such a constant (the SST-anomaly window,
-when it is ported) must ``copy_`` into it in place, or capture again.
+Anything that later changes such a constant must ``copy_`` into it in
+place, or capture again: the SST-anomaly window (``mc.clim.sstan3``),
+which the run drivers shift at month starts, is copied into in place on
+the replays' stream.
 
 The first day of a ``CapturedDay`` on CUDA warms up on a side stream on
 the staged copy of the state (building and loading the kernel libraries,
@@ -159,7 +161,8 @@ class CapturedDay:
         self.generator = None
         self.pool = pool
         self.graph = None
-        self.k1_launches = self.k1_launches_sw = 0
+        # the graph's K1 launches by counter (fused.COUNTERS)
+        self.k1_counts = dict.fromkeys(fused.COUNTERS, 0)
         self._source = None
 
     # ------------------------------------------------------------------
@@ -201,7 +204,7 @@ class CapturedDay:
                 self._body()
             torch.cuda.current_stream(self.device).wait_stream(side)
             copy_state(self.state, self._source)
-            before = fused.launches, fused.launches_sw
+            before = {n: getattr(fused, n) for n in fused.COUNTERS}
             graph = torch.cuda.CUDAGraph()
             # a collection inside the capture could destroy another graph
             # (of a dropped object in a reference cycle), which a capturing
@@ -215,11 +218,20 @@ class CapturedDay:
             finally:
                 if gc_on:
                     gc.enable()
-            self.k1_launches = fused.launches - before[0]
-            self.k1_launches_sw = fused.launches_sw - before[1]
-            fused.launches, fused.launches_sw = before
+            self.k1_counts = {n: getattr(fused, n) - v
+                              for n, v in before.items()}
+            for n, v in before.items():
+                setattr(fused, n, v)
         self.graph = graph
         self._source = None
+
+    @property
+    def k1_launches(self) -> int:
+        return self.k1_counts["launches"]
+
+    @property
+    def k1_launches_sw(self) -> int:
+        return self.k1_counts["launches_sw"]
 
     # ------------------------------------------------------------------
     def load(self, state) -> None:
@@ -260,8 +272,8 @@ class CapturedDay:
             self.generator = draw_day(self.generator, noise, self.eta)
         if self.graph is not None:
             self.graph.replay()
-            fused.launches += self.k1_launches
-            fused.launches_sw += self.k1_launches_sw
+            for n, v in self.k1_counts.items():
+                setattr(fused, n, getattr(fused, n) + v)
         else:
             self._body()
         self.rows[d].copy_(self.guard)

@@ -5,11 +5,19 @@ sea_model.f90, coupler.f90, forcing.f90).
 Host-side setup reads the monthly climatologies; the daily update and the
 per-step slab integrations run on the device. The slab models step every
 time step with per-delt relaxation coefficients (sea_model.f90:245-246).
+
+With ``sst_anomaly_forcing`` the atmosphere sees the climatological SST
+plus an observed anomaly, interpolated in a window of three months
+(``Climatology.sstan3``) that the run drivers set at the start and shift
+at each month start (sea_model.f90:172-182, 366-384). The window tensor
+is updated in place, never rebound: a captured day reads it at the
+address it had at capture.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -18,7 +26,7 @@ import torch
 from ..config import ModelConfig
 from ..constants import ALHC, GAMMA, GRAV, RGAS, SBC, REFRH1
 from ..ops import spectral as sp
-from ..utils.io import load_boundary_file
+from ..utils.io import ANOMALY_FILE, ANOMALY_MONTHS, load_boundary_file
 from ..utils.calendar import forint_weights, forin5_weights
 from .boundaries import fillsf, forchk
 from .physics import DailyForcing, SurfaceState, Fluxes, PhysicsParams
@@ -54,12 +62,14 @@ class LandSeaParams:
 
 
 class Climatology(NamedTuple):
-    """Monthly climatologies [12, il, ix]."""
+    """Monthly climatologies [12, il, ix] and the SST-anomaly window
+    [3, il, ix] (zeros until a run with anomaly forcing sets it)."""
     stl12: torch.Tensor
     snowd12: torch.Tensor
     soilw12: torch.Tensor
     sst12: torch.Tensor
     sice12: torch.Tensor
+    sstan3: torch.Tensor
 
 
 def sea_domain(cdomain: str, deglat_s: np.ndarray, ix: int,
@@ -190,8 +200,61 @@ def build_land_sea(cfg: ModelConfig, bounds_fmask: np.ndarray,
         cdice=dev(cdice), alb0=dev(alb0))
     clim = Climatology(stl12=dev(stl12), snowd12=dev(snowd12),
                        soilw12=dev(soilw12), sst12=dev(sst12),
-                       sice12=dev(sice12))
+                       sice12=dev(sice12), sstan3=dev(np.zeros((3, il, ix))))
     return params, clim
+
+
+def _read_anomaly_month(cfg: ModelConfig, bmask_s: np.ndarray,
+                        month_1b: int, search=None, arrays=None
+                        ) -> np.ndarray:
+    """Month ``month_1b`` (1-based, clamped to the file) of the anomaly
+    file, range-checked (sea_model.f90:176-181, obs_ssta :366-384). Zeros
+    with a warning when the file is absent (the reference ships a dangling
+    symlink for it)."""
+    idx = int(np.clip(month_1b - 1, 0, ANOMALY_MONTHS - 1))
+    try:
+        data = load_boundary_file(ANOMALY_FILE, "ssta", ANOMALY_MONTHS,
+                                  search, bmask_s.shape, arrays=arrays,
+                                  index=idx)
+    except (FileNotFoundError, KeyError):
+        warnings.warn(f"{ANOMALY_FILE} not found; SST anomaly set to zero")
+        return np.zeros_like(bmask_s)
+    return forchk(bmask_s, -50.0, 50.0, 0.0, data, "ssta")
+
+
+def copy_from_host(dst: torch.Tensor, src) -> None:
+    """Copy host values into ``dst`` in place, on the current stream,
+    without a host synchronisation on CUDA."""
+    host = torch.as_tensor(np.asarray(src)).to(dst.dtype)
+    if dst.is_cuda:
+        host = host.pin_memory()
+    dst.copy_(host, non_blocking=True)
+
+
+def initial_anomaly_window(cfg: ModelConfig, bmask_s: np.ndarray,
+                           isst0: int, sstan3: torch.Tensor, search=None,
+                           arrays=None) -> None:
+    """The 3-month window around the start month into ``sstan3``, in place
+    (sea_model.f90:172-182): isst0 = (start_year - issty0) * 12 +
+    start_month."""
+    window = np.zeros((3,) + bmask_s.shape)
+    for m in range(1, 4):
+        if (isst0 <= 1 and m != 2) or isst0 > 1:
+            window[m - 1] = _read_anomaly_month(cfg, bmask_s, isst0 - 2 + m,
+                                                search, arrays)
+    copy_from_host(sstan3, window)
+
+
+def advance_anomaly_window(cfg: ModelConfig, bmask_s: np.ndarray,
+                           sstan3: torch.Tensor, next_month: int,
+                           search=None, arrays=None) -> None:
+    """Month-start shift of the window (obs_ssta, sea_model.f90:366-384):
+    ``sstan3`` drops its first month and takes month ``next_month`` of the
+    file last, in place."""
+    new = torch.empty_like(sstan3[0])
+    copy_from_host(new, _read_anomaly_month(cfg, bmask_s, next_month,
+                                             search, arrays))
+    sstan3.copy_(torch.cat([sstan3[1:], new[None]]))
 
 
 def _interp(w: torch.Tensor, clim: torch.Tensor) -> torch.Tensor:
@@ -203,6 +266,7 @@ class DateScalars(NamedTuple):
     """Small date-derived inputs of the daily update, on the device."""
     w5: torch.Tensor      # [12] forin5 weights
     w2: torch.Tensor      # [12] forint weights
+    w2a: torch.Tensor     # [3] forint weights in the anomaly window
     fsol: torch.Tensor    # [il, 1] solar fields
     ozupp: torch.Tensor
     ozone: torch.Tensor
@@ -212,6 +276,7 @@ class DateScalars(NamedTuple):
     # next-day weights for the day's final coupling step
     w5n: torch.Tensor     # [12]
     w2n: torch.Tensor     # [12]
+    w2an: torch.Tensor    # [3]
 
 
 def date_scalars_np(cfg: ModelConfig, geom_np: dict, imont1: int,
@@ -234,11 +299,13 @@ def date_scalars_np(cfg: ModelConfig, geom_np: dict, imont1: int,
     return DateScalars(
         w5=arr(forin5_weights(imont1, tmonth)),
         w2=arr(forint_weights(imont1, tmonth)),
+        w2a=arr(forint_weights(2, tmonth, n=3)),
         fsol=col(zon["fsol"]), ozupp=col(zon["ozupp"]),
         ozone=col(zon["ozone"]), zenit=col(zon["zenit"]),
         stratz=col(zon["stratz"]), ablco2=arr(ablco2),
         w5n=arr(forin5_weights(imont1_next, tmonth_next)),
-        w2n=arr(forint_weights(imont1_next, tmonth_next)))
+        w2n=arr(forint_weights(imont1_next, tmonth_next)),
+        w2an=arr(forint_weights(2, tmonth_next, n=3)))
 
 
 def make_date_scalars(cfg: ModelConfig, geom_np: dict, imont1: int,
@@ -262,7 +329,8 @@ DATE_ALIGN = 64
 def _date_layout(cfg: ModelConfig):
     """(offset, shape) of each DateScalars field in a packed row, and the
     row's length F."""
-    shapes = [(12,), (12,)] + [(cfg.il, 1)] * 5 + [(), (12,), (12,)]
+    shapes = ([(12,), (12,), (3,)] + [(cfg.il, 1)] * 5
+              + [(), (12,), (12,), (3,)])
     layout, off = [], 0
     for s in shapes:
         layout.append((off, s))
@@ -299,12 +367,15 @@ def date_scalars_view(cfg: ModelConfig, flat: torch.Tensor) -> DateScalars:
                          for off, s in layout))
 
 
-def _interp_sea_clim(clim: Climatology, w5, w2):
+def _interp_sea_clim(cfg: ModelConfig, clim: Climatology, w5, w2, w2a):
     """Climatology interpolation + sea-ice freezing-point adjustment
-    (couple_sea_atm, sea_model.f90:277-305) for one set of weights."""
+    (couple_sea_atm, sea_model.f90:277-305) for one set of weights, and
+    the SST anomaly interpolated in its window (zero without anomaly
+    forcing)."""
     sstcl = _interp(w5, clim.sst12)
     sicecl = _interp(w2, clim.sice12)
-    sstan = torch.zeros_like(sstcl)
+    sstan = _interp(w2a, clim.sstan3) if cfg.sst_anomaly_forcing \
+        else torch.zeros_like(sstcl)
 
     warm = sstcl > SSTFR
     sicecl_w = torch.clamp(sicecl, max=0.5)
@@ -330,10 +401,11 @@ def daily_update(cfg: ModelConfig, pp: PhysicsParams, lsp: LandSeaParams,
     stlcl = _interp(ds.w5, clim.stl12)
     snowdcl = _interp(ds.w2, clim.snowd12)
     soilwcl = _interp(ds.w2, clim.soilw12)
-    sstcl, sicecl, ticecl, sstan = _interp_sea_clim(clim, ds.w5, ds.w2)
+    sstcl, sicecl, ticecl, sstan = _interp_sea_clim(cfg, clim, ds.w5, ds.w2,
+                                                    ds.w2a)
     stlcl_nx = _interp(ds.w5n, clim.stl12)
     sstcl_nx, sicecl_nx, ticecl_nx, sstan_nx = _interp_sea_clim(
-        clim, ds.w5n, ds.w2n)
+        cfg, clim, ds.w5n, ds.w2n, ds.w2an)
 
     # surface albedo (forcing.f90:55-62); the sea albedo uses the sea-ice
     # state of the last coupling step, as the reference does
@@ -396,8 +468,11 @@ def init_surface_state(cfg: ModelConfig, pp: PhysicsParams,
 def _update_am_fields(cfg: ModelConfig, daily: DailyForcing,
                       surf: SurfaceState) -> SurfaceState:
     """Sea-surface fields seen by the atmosphere (sea_model.f90:327-362),
-    for sea_coupling_flag 0 without SST anomalies."""
-    sst_am = daily.sstcl_ob + torch.zeros_like(daily.sstan_ob)
+    for sea_coupling_flag 0: the climatology plus the SST anomaly where the
+    forcing is on."""
+    sstan_am = daily.sstan_ob if cfg.sst_anomaly_forcing \
+        else torch.zeros_like(daily.sstan_ob)
+    sst_am = daily.sstcl_ob + sstan_am
     if cfg.ice_coupling_flag > 0:
         sice_am, tice_am = surf.sice_om, surf.tice_om
     else:

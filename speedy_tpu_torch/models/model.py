@@ -11,6 +11,14 @@ each day instead (models/captured.py): the state, the date inputs and the
 SPPT innovations go into static buffers, and on CUDA the day is one
 replay of a captured graph, as the JAX package runs one compiled day;
 on the CPU the same staged day runs eagerly.
+
+With ``sst_anomaly_forcing`` the model keeps the 3-month SST-anomaly
+window (``mc.clim.sstan3``) as the JAX package does: ``initialize`` sets
+it for the start month, ``run_fast`` ends its chunks at month ends and
+shifts it before the first day of each later month, ``run`` shifts it
+before a month's first day once past step 0, and ``Ensemble.run_days``
+never shifts it (the JAX package's quirk). Each shift copies into the
+window in place, on the stream the days run on.
 """
 from __future__ import annotations
 
@@ -25,7 +33,7 @@ from ..constants import GRAV, P0
 from ..geometry import build_geometry, build_geometry_np
 from ..ops import spectral as sp
 from ..utils import calendar as cal
-from ..utils.checkpoint import save_checkpoint
+from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.diagnostics import (Diagnostics, check_days,
                                  compute_diagnostics, check_diagnostics,
                                  format_diagnostics)
@@ -255,6 +263,9 @@ class Model:
         self.lsp, clim = coupling.build_land_sea(
             cfg, host(self.bounds.fmask), host(self.bounds.alb0),
             self.geom_np["radang"], dev, search=bc_search, arrays=bc_arrays)
+        # what the SST-anomaly window is read with, at each shift
+        self._anomaly_source = dict(search=bc_search, arrays=bc_arrays)
+        self._bmask_s = host(self.lsp.bmask_s)
         self.pp = build_physics_params(
             cfg, self.geom_np, self.sp_np, host(self.lsp.fmask_l),
             host(self.lsp.fmask_s), host(self.bounds.phis0), dev)
@@ -288,10 +299,32 @@ class Model:
         return coupling.make_date_scalars(self.cfg, self.geom_np, *args,
                                           self.device, **kw)
 
+    def set_anomaly_window(self, start: cal.Datetime) -> None:
+        """The SST-anomaly window around ``start``'s month
+        (sea_model.f90:172-182), in place."""
+        cfg = self.cfg
+        coupling.initial_anomaly_window(
+            cfg, self._bmask_s, (start.year - cfg.issty0) * 12 + start.month,
+            self.mc.clim.sstan3, **self._anomaly_source)
+
+    def advance_anomaly_window(self, start: cal.Datetime,
+                               date: cal.Datetime) -> None:
+        """Shift the SST-anomaly window at the month start ``date`` of a run
+        that began at ``start``, in place: the month read is the JAX
+        package's ``(start.year - issty0) * 12 + date.month``."""
+        cfg = self.cfg
+        coupling.advance_anomaly_window(
+            cfg, self._bmask_s, self.mc.clim.sstan3,
+            (start.year - cfg.issty0) * 12 + date.month,
+            **self._anomaly_source)
+
     def initial_state(self, start: cal.Datetime) -> ModelState:
         """Rest state, day-0 surface and radiation, and the stationary SPPT
-        state where SPPT is on, before the bootstrap."""
+        state where SPPT is on, before the bootstrap; with SST-anomaly
+        forcing, the anomaly window is set for ``start`` first."""
         cfg = self.cfg
+        if cfg.sst_anomaly_forcing:
+            self.set_anomaly_window(start)
         ds = self.date_scalars(start, start)
         prog = rest_state(cfg, self.geom_np, self.sp_np, self.bounds)
         surf = coupling.init_surface_state(cfg, self.pp, self.lsp,
@@ -367,19 +400,28 @@ class Model:
     def run_staged(self, cd: CapturedDay, date: cal.Datetime,
                    start: cal.Datetime, n_days: int, noise: Noise,
                    check: bool = True, max_chunk_days: int = 90,
-                   after_day=None) -> cal.Datetime:
+                   after_day=None, anomaly_months: bool = False
+                   ) -> cal.Datetime:
         """Advance the state loaded into ``cd`` ``n_days`` from ``date``
         (run began at ``start``), in chunks of at most ``max_chunk_days``:
         a chunk's date inputs reach the device in one copy, each day is
         one replay, and with ``check`` the guard is checked on every day's
         extrema once a chunk (one host synchronisation), naming the first
         day out of range (counted from ``date``). ``after_day(i)`` runs
-        after day i's replay. Returns the end date."""
+        after day i's replay. With ``anomaly_months`` and SST-anomaly
+        forcing on, a chunk also ends at a month's end, and the anomaly
+        window shifts before each month start after ``date`` (the JAX
+        package's run_fast). Returns the end date."""
         if max_chunk_days < 1:
             raise ValueError(f"max_chunk_days={max_chunk_days}")
-        done = 0
+        first, done = date, 0
         while done < n_days:
             chunk = min(n_days - done, max_chunk_days)
+            if anomaly_months and self.cfg.sst_anomaly_forcing:
+                if date.day == 1 and date != first:
+                    self.advance_anomaly_window(start, date)
+                chunk = min(chunk,
+                            cal.NDAYCAL[date.month - 1] - date.day + 1)
             rows, date = self.make_ds_days(date, start, chunk)
             cd.set_days(rows)
             for d in range(chunk):
@@ -399,14 +441,16 @@ class Model:
         """Run ``n_days`` from ``start`` with no output, each day one
         replay of the captured day (the JAX package's ``run_span``); the
         stability guard is checked on each day's extrema once per chunk
-        of at most ``max_chunk_days`` days (``run_staged``). Returns a new
-        state; the given one is left as it was."""
+        of at most ``max_chunk_days`` days, and with SST-anomaly forcing
+        the chunks end at month ends, where the window shifts
+        (``run_staged``). Returns a new state; the given one is left as
+        it was."""
         if state is None:
             state = self.initialize(start)
         cd = self.captured_day(state)
         cd.load(state)
         self.run_staged(cd, start, start, n_days, self.sppt_noise, check,
-                        max_chunk_days)
+                        max_chunk_days, anomaly_months=True)
         return cd.result()
 
     def run(self, start: cal.Datetime, end: cal.Datetime,
@@ -425,8 +469,10 @@ class Model:
         copy per day; without a writer the replayed day makes no fields.
 
         ``state``/``resume_date``/``model_step`` resume from a checkpoint
-        (utils/checkpoint.py); ``checkpoint_every`` > 0 writes a checkpoint
-        every that many days into ``checkpoint_dir``.
+        (``restore``); ``checkpoint_every`` > 0 writes a checkpoint every
+        that many days into ``checkpoint_dir``, with the SST-anomaly window
+        where that forcing is on. With it on, the window shifts before the
+        first day of a month once past step 0.
         """
         cfg = self.cfg
         if state is None:
@@ -447,6 +493,8 @@ class Model:
         cd.load(state)
         day_count = 0
         while date < end:
+            if cfg.sst_anomaly_forcing and date.day == 1 and model_step > 0:
+                self.advance_anomaly_window(start, date)
             cd.set_days(self.make_ds_days(date, start, 1)[0])
             cd.advance(0, self.sppt_noise)
             day = cd.outputs()
@@ -468,7 +516,25 @@ class Model:
                 name = (f"ckpt_{date.year:04d}{date.month:02d}"
                         f"{date.day:02d}{date.hour:02d}{date.minute:02d}.npz")
                 with host_sync():
-                    save_checkpoint(os.path.join(checkpoint_dir, name),
-                                    cd.result(), date, model_step,
-                                    start=start, cfg=cfg)
+                    save_checkpoint(
+                        os.path.join(checkpoint_dir, name), cd.result(),
+                        date, model_step, start=start,
+                        sstan3=(self.mc.clim.sstan3
+                                if cfg.sst_anomaly_forcing else None),
+                        cfg=cfg)
         return cd.result()
+
+    def restore(self, path: str, start: cal.Datetime
+                ) -> Tuple[ModelState, cal.Datetime, int, dict]:
+        """Resume from the checkpoint ``path`` of a run that began at
+        ``start``, as the JAX package's CLI does (speedy_tpu/cli.py:
+        222-237): the state restored onto ``initialize(start)``'s, its
+        configuration checked, and the SST-anomaly window saved with it
+        put back into the model. Returns (state, date, model_step,
+        extras) for ``run(state=..., resume_date=date,
+        model_step=model_step)``."""
+        state, date, model_step, extras = load_checkpoint(
+            path, self.initialize(start), cfg=self.cfg)
+        if "sstan3" in extras:
+            coupling.copy_from_host(self.mc.clim.sstan3, extras["sstan3"])
+        return state, date, model_step, extras

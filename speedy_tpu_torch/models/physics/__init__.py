@@ -205,8 +205,11 @@ def grid_physics_core(cfg: ModelConfig, pp: PhysicsParams,
     else:
         tau2, stratc, tt_rsw, ssrd = tau2_in, stratc_in, tt_rsw_in, ssrd_in
 
-    slrd, dfabs_lw, st4a1, st4a2, lwflux = longwave.downward_longwave_vec(
-        pp.wvi2, tau2, tg)
+    if cfg.lw_band_vectorized:
+        dlw, ulw = longwave.downward_longwave_vec, longwave.upward_longwave_vec
+    else:
+        dlw, ulw = longwave.downward_longwave, longwave.upward_longwave
+    slrd, dfabs_lw, st4a1, st4a2, lwflux = dlw(pp.wvi2, tau2, tg)
 
     # surface fluxes + land skin temperature (physics.f90:168-176)
     sfc = surface_mod.surface_fluxes(
@@ -214,7 +217,7 @@ def grid_physics_core(cfg: ModelConfig, pp: PhysicsParams,
         stl_am, soilw_am, alb_l, alb_s, snowc,
         psg, ug, vg, tg, qg, rh, phig, phis0, fmask_l, sst_am, ssrd, slrd)
 
-    slr, olr, dfabs_lw = longwave.upward_longwave_vec(
+    slr, olr, dfabs_lw = ulw(
         dhs, tau2, stratc, tg, sfc.tsfc, slrd, level(sfc.slru, 2), st4a1,
         st4a2, lwflux, dfabs_lw)
     tt_rlw = dfabs_lw * per_level(rps) * grdscp

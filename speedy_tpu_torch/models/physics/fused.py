@@ -9,8 +9,12 @@ It replaces the JAX package's Pallas kernel
 ``speedy_tpu/models/physics/fused.py::fused_grid_physics``.
 ``fused_grid_physics`` below takes the same arguments and returns the same
 structure as ``grid_physics_core``. On CPU tensors it runs that plain
-chain; on CUDA tensors it launches the kernel or raises. ``launches``
-counts kernel launches (``launches_sw`` those of the shortwave variant).
+chain; on CUDA tensors it launches the kernel or raises. The kernel is
+built in both LW orders of the chain (``cfg.lw_band_vectorized``: the
+band-vectorized sweeps, or with False the reference-order ones), and the
+plain twin follows the same config. ``launches`` counts kernel launches
+(``launches_sw`` those of the shortwave variant), ``launches_reflw`` and
+``launches_reflw_sw`` those of the reference LW order among them.
 
 An ensemble's inputs carry a leading member axis, and its members are
 extra columns of the same launch: M x il x ix columns, a row of blocks
@@ -50,11 +54,15 @@ THREADS = COLS * LANES
 
 launches = 0
 launches_sw = 0
+launches_reflw = 0
+launches_reflw_sw = 0
+# the launch counters, read and restored together by a graph capture
+COUNTERS = ("launches", "launches_sw", "launches_reflw", "launches_reflw_sw")
 
 
 def reset_launches() -> None:
-    global launches, launches_sw
-    launches = launches_sw = 0
+    global launches, launches_sw, launches_reflw, launches_reflw_sw
+    launches = launches_sw = launches_reflw = launches_reflw_sw = 0
 
 
 def _inner_contiguous(x: torch.Tensor, rank: int) -> bool:
@@ -164,9 +172,10 @@ def members_of(ins: list):
 
 def plain_outputs(cfg, pp, compute_sw: bool, ins: list) -> list:
     """The kernel's plain twin: grid_physics_core on the kernel's inputs
-    (kernel_inputs order, with or without the member axis), returning the
-    flat list of outputs in the kernel's shapes. The lowest-level winds
-    are broadcast over the levels: the chain reads only the lowest."""
+    (kernel_inputs order, with or without the member axis) in the LW order
+    ``cfg`` picks, returning the flat list of outputs in the kernel's
+    shapes. The lowest-level winds are broadcast over the levels: the
+    chain reads only the lowest."""
     from . import grid_physics_core
     col = lambda x: x.reshape(cfg.il, 1)
     lev = lambda x: x.unsqueeze(-3).expand(
@@ -229,7 +238,7 @@ def library() -> ctypes.CDLL:
         lib = native.load("column_physics", SOURCES, NVCC_FLAGS)
         lib.column_physics_launch.restype = ctypes.c_int
         lib.column_physics_launch.argtypes = (
-            [ctypes.c_int] * 6 + [ctypes.c_void_p] * 5)
+            [ctypes.c_int] * 7 + [ctypes.c_void_p] * 5)
         lib.column_physics_layout.restype = ctypes.c_int
         lib.column_physics_layout.argtypes = (
             [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 4)
@@ -247,9 +256,10 @@ def _check(x: torch.Tensor, shape, dtype, device, i: int) -> None:
 
 
 class _Signature(NamedTuple):
-    """What a launch of one (kx, il, ix, type, variant, members) needs,
-    built once: the inputs' shapes and sizes (a member's), and the outputs'
-    shapes, sizes and places in one buffer."""
+    """What a launch of one (kx, il, ix, type, variant, members, LW order)
+    needs, built once: the inputs' shapes and sizes (a member's), the
+    outputs' shapes, sizes and places in one buffer, and the LW order."""
+    reflw: bool                # the reference-order LW sweeps
     in_shapes: list
     in_numels: tuple
     out_shapes: list
@@ -261,8 +271,9 @@ class _Signature(NamedTuple):
 _signatures = {}
 
 
-def _signature(kx, il, ix, dtype, compute_sw, members=None) -> _Signature:
-    key = (kx, il, ix, dtype, compute_sw, members)
+def _signature(kx, il, ix, dtype, compute_sw, members=None,
+               reflw=False) -> _Signature:
+    key = (kx, il, ix, dtype, compute_sw, members, reflw)
     sig = _signatures.get(key)
     if sig is None:
         if dtype not in (torch.float32, torch.float64):
@@ -277,8 +288,8 @@ def _signature(kx, il, ix, dtype, compute_sw, members=None) -> _Signature:
         views = [(s, torch.empty(s, device="meta").stride(), int(o))
                  for s, o in zip(out_shapes, offsets)]
         sig = _signatures[key] = _Signature(
-            in_shapes, tuple(math.prod(s) for s in in_shapes), out_shapes,
-            out_numels, views, offsets * itemsize)
+            bool(reflw), in_shapes, tuple(math.prod(s) for s in in_shapes),
+            out_shapes, out_numels, views, offsets * itemsize)
     return sig
 
 
@@ -304,20 +315,22 @@ def _member_stride(x: torch.Tensor, shape, numel: int, members: int, dtype,
 
 def launch_kernel(cfg, compute_sw: bool, ins: list, block: np.ndarray):
     """Launch the kernel on CUDA tensors ``ins`` (kernel_inputs order, one
-    model's or an ensemble's) with the float64 argument block, on the
-    tensors' device and its current stream; returns the flat list of
-    outputs, views of one buffer ([M, ...] each for M members). An output
+    model's or an ensemble's) with the float64 argument block, in the LW
+    order ``cfg.lw_band_vectorized`` picks, on the tensors' device and its
+    current stream; returns the flat list of outputs, views of one buffer
+    ([M, ...] each for M members). An output
     that outlives the step keeps the whole buffer alive: the radiation
     state a SW step carries (tau2, stratc, tt_rsw, ssrd) holds all of that
     step's outputs until the next SW step, 105 rows of il x ix values per
     member at kx=8 (110 MB at T170 in fp64)."""
-    global launches, launches_sw
+    global launches, launches_sw, launches_reflw, launches_reflw_sw
     dtype, device = ins[2].dtype, ins[2].device
     if device.type != "cuda":
         raise ValueError(f"the column-physics kernel needs CUDA tensors, "
                          f"got {device}")
     members = members_of(ins)
-    sig = _signature(cfg.kx, cfg.il, cfg.ix, dtype, compute_sw, members)
+    sig = _signature(cfg.kx, cfg.il, cfg.ix, dtype, compute_sw, members,
+                     not cfg.lw_band_vectorized)
     if len(ins) != len(sig.in_shapes):
         raise ValueError(f"{len(ins)} inputs, expected {len(sig.in_shapes)}")
     if members is None:
@@ -342,15 +355,17 @@ def launch_kernel(cfg, compute_sw: bool, ins: list, block: np.ndarray):
     fn = library().column_physics_launch
     with torch.cuda.device(device):
         err = fn(int(dtype == torch.float64), cfg.kx, int(compute_sw),
-                 members or 1, cfg.il, cfg.ix, in_ptrs.ctypes.data,
-                 strides.ctypes.data, out_ptrs.ctypes.data,
-                 block.ctypes.data,
+                 members or 1, int(sig.reflw), cfg.il, cfg.ix,
+                 in_ptrs.ctypes.data, strides.ctypes.data,
+                 out_ptrs.ctypes.data, block.ctypes.data,
                  torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"column_physics kernel launch failed: CUDA "
                            f"error {err}")
     launches += 1
     launches_sw += int(compute_sw)
+    launches_reflw += int(sig.reflw)
+    launches_reflw_sw += int(sig.reflw and compute_sw)
     return outs
 
 

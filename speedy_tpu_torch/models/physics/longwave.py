@@ -1,7 +1,11 @@
 """Longwave radiation: 4-band emission/absorption sweeps
-(source/longwave_radiation.f90), in the band-vectorized order of the JAX
-package's ``*_vec`` sweeps. The reference-order sweeps are not ported yet
-(``lw_band_vectorized=False`` is refused)."""
+(source/longwave_radiation.f90), in the two orders of the JAX package,
+picked by ``cfg.lw_band_vectorized``: the ``*_vec`` pair (the default)
+sums each level's four band terms first and adds the sum, while
+``downward_longwave``/``upward_longwave`` (``lw_band_vectorized=False``)
+add them into each level's absorbed flux band by band, in the reference's
+order. The two differ only by rounding, which the JAX package found to
+change the 90-day stability at T85."""
 from __future__ import annotations
 
 from typing import Tuple
@@ -37,10 +41,10 @@ def _band_sum(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def downward_longwave_vec(wvi2: np.ndarray, tau2: torch.Tensor,
-                          ta: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-    """-> (slrd, dfabs, st4a1, st4a2, flux) (longwave_radiation.f90:16-117);
-    st4a1/st4a2 and the 4 band fluxes feed the upward sweep."""
+def _st4a(wvi2: np.ndarray, ta: torch.Tensor
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The levels' blackbody emission and its gradient term (st4a1, st4a2),
+    [..., kx, il, ix] (longwave_radiation.f90:26-58)."""
     kx = ta.shape[-3]
     nl1 = kx - 1
     w = torch.as_tensor(wvi2[: kx - 1], dtype=ta.dtype,
@@ -63,8 +67,120 @@ def downward_longwave_vec(wvi2: np.ndarray, tau2: torch.Tensor,
         st3a = SBC * L(ta, k) ** 3
         st4a1[k] = st3a * L(ta, k)
         st4a2[k] = 4.0 * st3a * st4a2[k]
-    st4a1 = torch.stack(st4a1, dim=-3)
-    st4a2 = torch.stack(st4a2, dim=-3)
+    return torch.stack(st4a1, dim=-3), torch.stack(st4a2, dim=-3)
+
+
+def _tau(tau2: torch.Tensor, b: int, k: int) -> torch.Tensor:
+    """Band b's transmissivity at level k: tau2 is [..., 4, kx, il, ix]."""
+    return L(L(tau2, b, -4), k)
+
+
+def _fb(fb: torch.Tensor, k: int, b: int) -> torch.Tensor:
+    """Level k's fraction of band b: fb is [..., kx, 4, il, ix]."""
+    return L(L(fb, k, -4), b)
+
+
+def downward_longwave(wvi2: np.ndarray, tau2: torch.Tensor,
+                      ta: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """-> (slrd, dfabs, st4a1, st4a2, flux) (longwave_radiation.f90:16-117)
+    in the reference's order: each level's dfabs starts at zero and takes
+    +f and -f_new band after band (bands 0..3 outer, levels 1..kx-1
+    inner), after the stratospheric -flux of bands 0-1 at level 0."""
+    kx = ta.shape[-3]
+    st4a1, st4a2 = _st4a(wvi2, ta)
+    fb = _fband_at(ta)
+
+    # 3.1 stratosphere, bands 1-2, k=1
+    dfabs = [torch.zeros_like(L(ta, k)) for k in range(kx)]
+    flux = [None] * 4
+    for b in range(2):
+        emis = 1.0 - _tau(tau2, b, 0)
+        brad = _fb(fb, 0, b) * (L(st4a1, 0) + emis * L(st4a2, 0))
+        flux[b] = emis * brad
+        dfabs[0] = dfabs[0] - flux[b]
+    for b in range(2, 4):
+        flux[b] = torch.zeros_like(L(ta, 0))
+
+    # 3.2 troposphere, band by band
+    for b in range(4):
+        f = flux[b]
+        for k in range(1, kx):
+            tau = _tau(tau2, b, k)
+            emis = 1.0 - tau
+            brad = _fb(fb, k, b) * (L(st4a1, k) + emis * L(st4a2, k))
+            dfabs[k] = dfabs[k] + f
+            f = tau * f + emis * brad
+            dfabs[k] = dfabs[k] - f
+        flux[b] = f
+
+    slrd = EMISFC * (flux[0] + flux[1] + flux[2] + flux[3])
+
+    # 3.4 "black" band correction
+    corlw = EPSLW * EMISFC * L(st4a1, kx - 1)
+    dfabs[kx - 1] = dfabs[kx - 1] - corlw
+    slrd = slrd + corlw
+    return (slrd, torch.stack(dfabs, dim=-3), st4a1, st4a2,
+            torch.stack(flux, dim=-3))
+
+
+def upward_longwave(dhs: np.ndarray, tau2: torch.Tensor,
+                    stratc: torch.Tensor, ta: torch.Tensor,
+                    ts: torch.Tensor, fsfcd: torch.Tensor,
+                    fsfcu: torch.Tensor, st4a1: torch.Tensor,
+                    st4a2: torch.Tensor, flux: torch.Tensor,
+                    dfabs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """-> (slr, olr, dfabs) (longwave_radiation.f90:120-194) in the
+    reference's order: each level's dfabs continues from the downward
+    sweep's, with EPSLW * fsfcu at the lowest level first, then +f and
+    -f_new band after band (levels kx-1..1), the two stratospheric bands
+    at level 0, and the corrections -corlw1, -corlw2; olr is summed left
+    to right."""
+    kx = ta.shape[-3]
+    refsfc = 1.0 - EMISFC
+    slr = fsfcu - fsfcd
+
+    fb_ts = _fband_at(ts)   # [..., 4, il, ix]
+    fb = _fband_at(ta)
+    fluxes = [L(fb_ts, b) * fsfcu + refsfc * L(flux, b) for b in range(4)]
+
+    dfa = [L(dfabs, k) for k in range(kx)]
+    dfa[kx - 1] = dfa[kx - 1] + EPSLW * fsfcu
+
+    for b in range(4):
+        f = fluxes[b]
+        for k in range(kx - 1, 0, -1):
+            tau = _tau(tau2, b, k)
+            emis = 1.0 - tau
+            brad = _fb(fb, k, b) * (L(st4a1, k) - emis * L(st4a2, k))
+            dfa[k] = dfa[k] + f
+            f = tau * f + emis * brad
+            dfa[k] = dfa[k] - f
+        fluxes[b] = f
+
+    # stratosphere k=1, bands 1-2
+    for b in range(2):
+        tau = _tau(tau2, b, 0)
+        emis = 1.0 - tau
+        brad = _fb(fb, 0, b) * (L(st4a1, 0) - emis * L(st4a2, 0))
+        dfa[0] = dfa[0] + fluxes[b]
+        fluxes[b] = tau * fluxes[b] + emis * brad
+        dfa[0] = dfa[0] - fluxes[b]
+
+    corlw1 = float(dhs[0]) * L(stratc, 1) * L(st4a1, 0) + L(stratc, 0)
+    corlw2 = float(dhs[1]) * L(stratc, 1) * L(st4a1, 1)
+    dfa[0] = dfa[0] - corlw1
+    dfa[1] = dfa[1] - corlw2
+    olr = corlw1 + corlw2 + fluxes[0] + fluxes[1] + fluxes[2] + fluxes[3]
+    return slr, olr, torch.stack(dfa, dim=-3)
+
+
+def downward_longwave_vec(wvi2: np.ndarray, tau2: torch.Tensor,
+                          ta: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """-> (slrd, dfabs, st4a1, st4a2, flux) (longwave_radiation.f90:16-117)
+    with each level's four band terms summed first; st4a1/st4a2 and the 4
+    band fluxes feed the upward sweep."""
+    kx = ta.shape[-3]
+    st4a1, st4a2 = _st4a(wvi2, ta)
     # level k's st4a terms against its 4 (or 2) band fluxes
     s4 = lambda x, k: levels(x, k, k + 1)
 
@@ -101,7 +217,8 @@ def upward_longwave_vec(dhs: np.ndarray, tau2: torch.Tensor,
                         fsfcu: torch.Tensor, st4a1: torch.Tensor,
                         st4a2: torch.Tensor, flux: torch.Tensor,
                         dfabs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-    """-> (slr, olr, dfabs) (longwave_radiation.f90:120-194)."""
+    """-> (slr, olr, dfabs) (longwave_radiation.f90:120-194) with each
+    level's four band terms summed first."""
     kx = ta.shape[-3]
     refsfc = 1.0 - EMISFC
     slr = fsfcu - fsfcd

@@ -10,7 +10,10 @@ members is one replay of the model's captured day for M members
 (models/captured.py), one graph per member count and variant. With SPPT on,
 each member has its own generator, seeded ``base_seed + i``, so a member's
 trajectory does not depend on how many members run beside it; with SPPT
-off every member equals the single model.
+off every member equals the single model. With SST-anomaly forcing, as in
+the JAX package, ``initialize`` sets the model's anomaly window (through
+``Model.initialize``) and ``run_days`` never shifts it, however many
+month starts it crosses.
 """
 from __future__ import annotations
 

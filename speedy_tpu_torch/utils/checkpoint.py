@@ -7,10 +7,13 @@ state, the radiation state and, with SPPT on, the AR(1) state and its
 generator's state as bytes), the model date and step, the run's start date
 and the configuration's metadata, in one ``.npz``. The layout is the JAX
 package's (``speedy_tpu/utils/checkpoint.py``): leaves under
-``group::field`` names, ``__date__``, ``__start__``, ``__config__`` (and
-``__sstan3__``, which this package reads back into ``extras`` but does not
-write, having no SST anomalies); only the SPPT random state differs, as
-``sppt::generator`` where the JAX package stores ``sppt::key``.
+``group::field`` names, ``__date__``, ``__start__``, ``__config__`` and,
+where given (``Model.run`` gives it when SST-anomaly forcing is on; the
+JAX package writes it always), ``__sstan3__``, the SST-anomaly window,
+which lives outside the state and is read back into ``extras``
+(``Model.restore`` puts it back into the model); only the SPPT random
+state differs, as ``sppt::generator`` where the JAX package stores
+``sppt::key``.
 Loading restores the state bit for bit and refuses a checkpoint whose
 configuration metadata differ from the given config, or whose leaves are
 not exactly the template's.
@@ -60,7 +63,8 @@ def _to_numpy(leaf) -> np.ndarray:
 
 
 def save_checkpoint(path: str, state, date: Datetime, model_step: int = 0,
-                    start: Optional[Datetime] = None, cfg=None) -> None:
+                    start: Optional[Datetime] = None, sstan3=None,
+                    cfg=None) -> None:
     arrays: Dict[str, np.ndarray] = {k: _to_numpy(v)
                                      for k, v in _leaves(state)}
     arrays["__date__"] = np.array(
@@ -70,6 +74,8 @@ def save_checkpoint(path: str, state, date: Datetime, model_step: int = 0,
         arrays["__start__"] = np.array(
             [start.year, start.month, start.day, start.hour, start.minute],
             dtype=np.int64)
+    if sstan3 is not None:
+        arrays["__sstan3__"] = _to_numpy(sstan3)
     if cfg is not None:
         arrays["__config__"] = np.frombuffer(
             json.dumps(config_meta(cfg)).encode(), dtype=np.uint8)

@@ -17,6 +17,11 @@ import numpy as np
 
 from ..constants import PI_F
 
+# the SST-anomaly file that sst_anomaly_forcing reads: ssta, one field a
+# month from January of cfg.issty0 (sea_model.f90:177)
+ANOMALY_FILE = "sea_surface_temperature_anomaly.nc"
+ANOMALY_MONTHS = 420
+
 DEFAULT_BC_PATHS = [
     os.environ.get("SPEEDY_BC_PATH", ""),
     "data/bc/t30/clim",
@@ -81,20 +86,33 @@ def load_boundary_file(name: str, var: str,
                        months: Optional[int] = None,
                        search: Optional[list] = None,
                        target_shape: Optional[tuple] = None,
-                       arrays: Optional[Mapping] = None) -> np.ndarray:
+                       arrays: Optional[Mapping] = None,
+                       index: Optional[int] = None) -> np.ndarray:
     """Read a 2-D field ([il, ix]) or a monthly climatology
     ([months, il, ix]) from ``arrays[name][var]`` when ``arrays`` is given,
-    else from the file ``name`` on ``search``."""
+    else from the file ``name`` on ``search``; with ``index``, only that
+    month (0-based) of the climatology, as [il, ix] (each month is
+    regridded on its own, so this equals the whole field's month
+    ``index``)."""
     if arrays is not None:
-        data = np.array(arrays[name][var], dtype=np.float64)
+        src = arrays[name][var]
     else:
         import h5py
-        with h5py.File(find_boundary_file(name, search), "r") as f:
-            data = np.asarray(f[var], dtype=np.float64)
-    want = 2 if months is None else 3
-    if data.ndim != want or (months is not None and data.shape[0] != months):
-        raise ValueError(f"{name}:{var} has shape {data.shape}, expected "
-                         f"{'[months, lat, lon]' if months else '[lat, lon]'}")
+        f = h5py.File(find_boundary_file(name, search), "r")
+        src = f[var]
+    try:
+        shape = tuple(src.shape)
+        want = 2 if months is None else 3
+        if len(shape) != want or (months is not None
+                                  and shape[0] != months):
+            raise ValueError(
+                f"{name}:{var} has shape {shape}, expected "
+                f"{'[months, lat, lon]' if months else '[lat, lon]'}")
+        data = np.array(src if index is None else src[index],
+                        dtype=np.float64)
+    finally:
+        if arrays is None:
+            f.close()
     data = data[..., ::-1, :].copy()
     data[data <= -999.0] = 0.0
     if target_shape is not None:

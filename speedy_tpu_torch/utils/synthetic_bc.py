@@ -9,12 +9,18 @@ front. Every value lies inside the range that ``forchk`` accepts for its
 field. The fields are a stand-in for missing data, not a climatology: a
 few smooth continents with orography, an Antarctic ice sheet, an
 equator-to-pole SST with a seasonal shift, and polar sea ice.
+
+``synthetic_boundaries(seed, anomaly=True)`` adds the SST-anomaly file
+that ``sst_anomaly_forcing`` reads (``sea_surface_temperature_anomaly.nc``,
+``ssta`` [420, 48, 96], 7.7 MB): smooth travelling patterns of a few
+kelvin, different every month. It is drawn from a generator of its own, so
+the other files are the same with and without it.
 """
 from __future__ import annotations
 
 import numpy as np
 
-from .io import gaussian_seed_lats
+from .io import ANOMALY_FILE, ANOMALY_MONTHS, gaussian_seed_lats
 
 FILES = {
     "surface.nc": ("orog", "lsm", "alb", "vegh", "vegl"),
@@ -29,8 +35,31 @@ FILES = {
 IL, IX = 48, 96   # the grid of the boundary files
 
 
-def synthetic_boundaries(seed: int = 0) -> dict:
-    """Stand-in boundary set on the 48 x 96 Gaussian-seed grid."""
+def synthetic_anomalies(seed: int = 0) -> np.ndarray:
+    """Stand-in monthly SST anomalies, float32 [420, 48, 96] (N -> S): two
+    zonally travelling waves and an equatorial pattern, each with its own
+    seeded period, amplitude and phase, so that every month differs from
+    the next; within +-6 K, inside forchk's [-50, 50]."""
+    rng = np.random.default_rng([seed, 1])
+    lat = np.radians(np.degrees(gaussian_seed_lats(IL))[::-1])[:, None]
+    lon = np.radians(np.arange(IX) * 360.0 / IX)[None, :]
+    month = np.arange(ANOMALY_MONTHS)[:, None, None]
+    ssta = np.zeros((ANOMALY_MONTHS, IL, IX))
+    for wave in range(1, 3):
+        amp, period = rng.uniform(0.8, 2.0), rng.uniform(5.0, 40.0)
+        lat0, phase = rng.uniform(-40.0, 40.0), rng.uniform(0.0, 2 * np.pi)
+        envelope = np.exp(-((lat - np.radians(lat0)) / 0.5) ** 2)
+        ssta += amp * envelope * np.cos(
+            wave * lon - 2 * np.pi * month / period + phase)
+    amp, period = rng.uniform(1.0, 2.0), rng.uniform(30.0, 60.0)
+    ssta += (amp * np.exp(-(lat / 0.2) ** 2) * np.cos(lon - np.pi)
+             * np.sin(2 * np.pi * month / period))
+    return ssta.astype(np.float32)
+
+
+def synthetic_boundaries(seed: int = 0, anomaly: bool = False) -> dict:
+    """Stand-in boundary set on the 48 x 96 Gaussian-seed grid; with
+    ``anomaly``, also the SST-anomaly file (synthetic_anomalies)."""
     rng = np.random.default_rng(seed)
     lat = np.degrees(gaussian_seed_lats(IL))[::-1][:, None]   # N -> S
     lon = (np.arange(IX) * 360.0 / IX)[None, :]
@@ -77,7 +106,7 @@ def synthetic_boundaries(seed: int = 0) -> dict:
         return np.ascontiguousarray(np.broadcast_to(a, shape),
                                     dtype=np.float32)
 
-    return {
+    out = {
         "surface.nc": dict(orog=f32(orog), lsm=f32(lsm), alb=f32(alb),
                            vegh=f32(vegh), vegl=f32(vegl)),
         "land.nc": dict(stl=f32(stl, True)),
@@ -86,6 +115,9 @@ def synthetic_boundaries(seed: int = 0) -> dict:
         "sea_surface_temperature.nc": dict(sst=f32(sst, True)),
         "sea_ice.nc": dict(icec=f32(icec, True)),
     }
+    if anomaly:
+        out[ANOMALY_FILE] = dict(ssta=synthetic_anomalies(seed))
+    return out
 
 
 def write_boundary_files(directory: str, arrays: dict) -> None:

@@ -457,9 +457,7 @@ def test_files_hold_member_fields(output_run, member):
                     got[0], v.numpy().astype(np.float32), err_msg=(step, k))
 
 
-@pytest.mark.parametrize("option", [dict(sea_coupling_flag=1),
-                                    dict(sst_anomaly_forcing=True),
-                                    dict(lw_band_vectorized=False)])
+@pytest.mark.parametrize("option", [dict(sea_coupling_flag=1)])
 def test_check_supported_still_refuses(option):
     with pytest.raises(NotImplementedError):
         check_supported(t30(n_ensemble=8, **option))

@@ -30,7 +30,13 @@ fields against run_day's, with the replay under the sync debug mode
 launches of a replayed T30 day in a profiler trace (36, 12 SW) and in the
 launch counters; run_fast, run_days and Model.run with checkpoints
 synchronising only where marked; a checkpoint resumed on the card equal to
-the straight run.
+the straight run. The reference LW order (lw_band_vectorized=False): the
+column-physics kernel against its plain chain at T30 (kx 5/7/8), T85 and
+T170 (kx=8), its fp32 outputs not equal to the default order's, with 1
+and 8 members, its refusal of bad inputs, and the main path's launches
+counted as reference-order ones; an SST-anomaly run across a month start
+replayed against the eager days (torch.equal); one K1 launch a step of a
+replayed T85 day.
 """
 import ctypes
 import os
@@ -90,6 +96,93 @@ def test_kernel_matches_plain_chain(smoke, bc, preset, kx, precision):
             errs = bp.field_errors(kout, pout)
             for name, (e, _) in zip(bp.OUTPUT_NAMES, errs):
                 assert e <= bound, (sw, name, e)
+
+
+@pytest.mark.parametrize("preset,kx", K1_GRIDS[:3] + K1_GRIDS[4:])
+@pytest.mark.parametrize("precision", ["fp64", "fp32"])
+def test_reference_lw_kernel_matches_plain_chain(smoke, bc, preset, kx,
+                                                 precision):
+    """The reference-order kernel against its plain chain (the same LW
+    order), and in fp32 not equal to the default order's kernel."""
+    bound = bp.FP64_BOUND if precision == "fp64" else bp.FP32_BOUND
+    m = Model(from_preset(preset, precision=precision, kx=kx,
+                          lw_band_vectorized=False), device="cuda",
+              bc_arrays=bc)
+    vec = bp.with_order(m.cfg, "vec")
+    for sw in (True, False):
+        booted, block = bp.physics_case(m, sw)
+        ins = bp.perturb(booted)
+        kout = fused.launch_kernel(m.cfg, sw, ins, block)
+        pout = fused.plain_outputs(m.cfg, m.pp, sw, ins)
+        for name, (e, _) in zip(bp.OUTPUT_NAMES, bp.field_errors(kout, pout)):
+            assert e <= bound, (sw, name, e)
+        if precision == "fp32":
+            vout = fused.launch_kernel(vec, sw, ins, block)
+            assert any(not torch.equal(a, b) for a, b in zip(kout, vout))
+
+
+@pytest.mark.parametrize("members", [1, 8])
+@pytest.mark.parametrize("precision", ["fp64", "fp32"])
+def test_reference_lw_kernel_with_members(smoke, bc, members, precision):
+    m = Model(t30(precision=precision, lw_band_vectorized=False),
+              device="cuda", bc_arrays=bc)
+    for sw in (True, False):
+        _, _, rec = bp.check_members(m, sw, members)
+        rec["bound"] = bp.error_bound(m.cfg.rdtype)
+        assert bp.passed(rec), (sw, rec)
+
+
+@pytest.mark.parametrize("case", ["dtype", "shape", "cpu", "count"])
+def test_reference_lw_kernel_refuses_bad_input(smoke, bc, case):
+    m = Model(t30(lw_band_vectorized=False), device="cuda", bc_arrays=bc)
+    ins, block = bp.physics_case(m, False)
+    ins = list(ins)
+    if case == "dtype":
+        ins[2] = ins[2].half()
+    elif case == "shape":
+        ins[3] = ins[3][:-1]
+    elif case == "cpu":
+        ins[24] = ins[24].cpu()
+    else:
+        ins.pop()
+    fused.reset_launches()
+    with pytest.raises(ValueError):
+        fused.launch_kernel(m.cfg, False, ins, block)
+    assert fused.launches == fused.launches_reflw == 0
+
+
+def test_reference_lw_main_path_launches(smoke, bc):
+    """Every K1 launch of a reference-order run is counted as one, in the
+    boot and in each replayed day."""
+    m = Model(t30(lw_band_vectorized=False), device="cuda", bc_arrays=bc)
+    smoke.capture_day(m, m.initialize(START), START)
+    fused.reset_launches()
+    m.run_fast(START, 1)
+    nsteps, nstrad = m.cfg.nsteps, m.cfg.nstrad
+    assert fused.launches == fused.launches_reflw == 2 + nsteps
+    assert fused.launches_sw == fused.launches_reflw_sw == 2 + nsteps // nstrad
+
+
+def test_sst_anomaly_replay_across_month_start(smoke):
+    """An fp32 SST-anomaly run from 1982-01-30 over 4 days: replayed equal
+    to the eager days, the window shifted at 1982-02-01 in both."""
+    m = Model(t30(sst_anomaly_forcing=True), device="cuda",
+              bc_arrays=synthetic_boundaries(0, anomaly=True))
+    differ, shifted, end, _ = smoke.sst_replay_vs_eager(
+        m, cal.Datetime(1982, 1, 30), 4)
+    assert not differ and shifted
+    assert end == cal.Datetime(1982, 2, 3)
+
+
+def test_t85_day_launches_once_per_step(smoke, bc):
+    m = Model(from_preset("t85"), device="cuda", bc_arrays=bc)
+    state = m.initialize(START)
+    smoke.capture_day(m, state, START)
+    fused.reset_launches()
+    out = m.run_fast(START, 1, state=state)
+    assert fused.launches == m.cfg.nsteps == 96
+    assert fused.launches_sw == m.cfg.nsteps // m.cfg.nstrad
+    assert bool(torch.isfinite(out.prog.vor).all())
 
 
 @pytest.mark.parametrize("preset", ["t30", "t42", "t63", "t85", "t170"])

@@ -9,7 +9,8 @@ files, the port from the same arrays in memory). Checked at 1e-10 (max
   boot parity);
 * one whole run_day, which ends with the couple-with-next-day step;
 at T30 and at a reduced kx=5 T21 grid. Also the package's hygiene: no JAX
-import, CUDA by default, no silent CPU fall-back, refused options.
+import, CUDA by default, no silent CPU fall-back, the refused option
+(sea_coupling_flag >= 1, which the JAX package refuses too).
 """
 import os
 import subprocess
@@ -164,9 +165,7 @@ def test_model_defaults_to_cuda_and_never_falls_back(bc):
         Model(t30(), bc_arrays=bc)
 
 
-@pytest.mark.parametrize("option", [dict(sea_coupling_flag=1),
-                                    dict(sst_anomaly_forcing=True),
-                                    dict(lw_band_vectorized=False)])
+@pytest.mark.parametrize("option", [dict(sea_coupling_flag=1)])
 def test_unported_options_raise(bc, option):
     with pytest.raises(NotImplementedError):
         Model(t30(**option), device="cpu", bc_arrays=bc)
