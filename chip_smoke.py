@@ -87,7 +87,24 @@ Phases (each prints one line or more; any failure exits non-zero):
     runs of PRESET_DAYS replayed days each (T85 2, T42, T63 and T170 1) in
     the guard, captured first: sim-days/min, wall and device ms/step (CUDA
     events around the run), K1 launches (days x nsteps), capture seconds
-    and the graph pool's size.
+    and the graph pool's size;
+13. the command line and the native NetCDF writer, each command a process
+    of its own as a user types it (python -m speedy_tpu_torch): (a) ``run``
+    over one day with output (rc 0, the native writer taken, 37 files),
+    each file against the file of an in-process Model.run with the scipy
+    writer (bit for bit, else the largest difference and why, at most 1e-6
+    field-normalised), then s/day of Model.run with each writer in turns;
+    (b) (a) with --checkpoint-every 1, then --auto-resume to the second
+    day, whose last file must equal a straight two-day ``run``'s, made in
+    this process (cli.main) with its K1 launches counted; (c) ``ensemble``
+    with 8 members over 2 days (8 member files) and with 2 members over a
+    day with --output-every-step (2 x 37 files);
+14. the validation programs through their python -m entries on the
+    stand-in set: the stability gate (GATE_RUNS: 90 days at T30, T42, T63
+    and T85, 10 at T170), each preset guard-clean with finite fields, its
+    t_sfc_global_K, jet_max_ms and pass printed; run_climatology over 365
+    days at T30; fp32_qualification at T30 over 30 days with 64 members
+    (every part, then the report).
 The last three lines are the kernel table, the card and the result line.
 Runs on the stand-in boundary set (speedy_tpu_torch/utils/synthetic_bc.py).
 """
@@ -820,6 +837,244 @@ def presets_phase(bc, card):
     return ok
 
 
+CLI_DAYS = 2               # [13] (b): a checkpointed day, then one more
+WRITER_TURNS = 2           # [13] (a): in-process days per output writer
+GATE_RUNS = (("t30,t42,t63,t85", 90), ("t170", 10))   # [14] (presets, days)
+CLIMATE_DAYS = 365         # [14] run_climatology at T30
+QUAL_DAYS, QUAL_MEMBERS = 30, 64   # [14] fp32_qualification at T30
+DEVICE = "cuda"            # [13], [14]: the programs' device
+COMMON = ("--synthetic-bc", "0", "--device", DEVICE)   # and boundary set
+
+
+def program(label, module, *args):
+    """``python -m module args`` from this checkout's root, as a user
+    types it; prints its wall time and, on a failure, its output's end.
+    Returns the CompletedProcess."""
+    import subprocess
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", module, *args],
+                       cwd=os.path.dirname(os.path.abspath(__file__)),
+                       capture_output=True, text=True, timeout=900)
+    print(f"{label} python -m {module} {' '.join(args)}: rc {r.returncode} "
+          f"in {time.perf_counter() - t0:.1f} s")
+    if r.returncode not in (0, 1) or "Traceback" in r.stderr:
+        print(r.stdout[-3000:] + r.stderr[-3000:])
+    return r
+
+
+def in_process_cli(argv):
+    """speedy_tpu_torch.cli.main(argv) in this process, its printed lines
+    kept; returns (rc, output)."""
+    import io
+    from speedy_tpu_torch import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue()
+
+
+def nc_diff(a_dir, b_dir, names=None):
+    """The files of two output directories variable by variable: (the same
+    file names, variables and attributes, the largest field-normalised
+    difference over every variable of the files ``names`` (default: all),
+    where it is)."""
+    from scipy.io import netcdf_file
+    la, lb = sorted(os.listdir(a_dir)), sorted(os.listdir(b_dir))
+    same = la == lb
+    worst, where = 0.0, None
+    for n in (names or la):
+        with netcdf_file(os.path.join(a_dir, n), mmap=False) as fa, \
+                netcdf_file(os.path.join(b_dir, n), mmap=False) as fb:
+            same &= set(fa.variables) == set(fb.variables)
+            for k, va in fa.variables.items():
+                vb = fb.variables[k]
+                same &= all(getattr(va, att, None) == getattr(vb, att, None)
+                            for att in ("long_name", "units"))
+                x = np.asarray(va[:], np.float64)
+                y = np.asarray(vb[:], np.float64)
+                d = float(np.abs(x - y).max() / max(np.abs(y).max(), 1e-300))
+                if d > worst:
+                    worst, where = d, f"{n} {k}"
+    return same, worst, where
+
+
+def cli_phase(bc, card):
+    """[13] The command line and the native writer on the card, each step
+    a process of its own as a user types it: (a) one checkpointed day of
+    ``run`` with output, against an in-process Model.run with the scipy
+    writer; s/day of Model.run with each writer; (b) --auto-resume from
+    (a)'s checkpoint to the second day, against a straight two-day ``run``
+    made in this process with its K1 launches counted; (c) ``ensemble``
+    without and with --output-every-step."""
+    from speedy_tpu_torch.config import t30
+    from speedy_tpu_torch.models.model import Model
+    from speedy_tpu_torch.models.physics import fused
+    from speedy_tpu_torch.utils import calendar as cal
+    from speedy_tpu_torch.utils.native_output import AsyncNetCDFWriter
+    from speedy_tpu_torch.utils.output import NetCDFWriter
+
+    t_phase = time.perf_counter()
+    start = cal.Datetime(1982, 1, 1)
+    day1 = cal.next_day(start)
+    ok = True
+    with tempfile.TemporaryDirectory() as tmp:
+        d = lambda *p: os.path.join(tmp, *p)
+        run = ("run",) + COMMON + ("--start", "1982-01-01")
+        ck = ("--checkpoint-every", "1", "--checkpoint-dir", d("ck"))
+        # (a) one day with output, checkpointed for (b)
+        r = program("[13] (a)", "speedy_tpu_torch", *run, "--end",
+                    "1982-01-02", *ck, "--output-dir", d("cli"))
+        native_taken = "output writer: native" in r.stdout
+        files = sorted(os.listdir(d("cli"))) if os.path.isdir(d("cli")) \
+            else []
+        wall = re.search(r"wall time: ([0-9.]+)s", r.stdout)
+        model = Model(t30(), device=DEVICE, bc_arrays=bc)
+        model.run(start, day1, output_writer=NetCDFWriter(model.cfg,
+                                                          d("ref")),
+                  verbose=False)
+        same, worst, where = nc_diff(d("cli"), d("ref"))
+        good = (r.returncode == 0 and native_taken and len(files) == 37
+                and same and worst <= 1e-6)
+        ok &= good
+        print(f"[13] (a) run 1 day: {len(files)} files, native writer taken: "
+              f"{native_taken}, the same files, variables and attributes as "
+              f"Model.run with the scipy writer in this process: {same}, "
+              f"largest difference {worst:.3e} field-normalised (bound 1e-6)"
+              + ("" if worst == 0 else
+                 f" at {where}: two processes, each with its own captured "
+                 "day") + f"; the command's wall time "
+              f"{wall.group(1) if wall else '?'} s (model build excluded, "
+              f"warm-up day and capture included) {'ok' if good else 'FAILED'}")
+        # s/day of Model.run with each writer, the day captured before
+        walls = {"native": [], "scipy": []}
+        for i in range(WRITER_TURNS):
+            for kind in (("native", "scipy") if i % 2 == 0
+                         else ("scipy", "native")):
+                out = d(f"w{kind}{i}")
+                w = AsyncNetCDFWriter(model.cfg, out) if kind == "native" \
+                    else NetCDFWriter(model.cfg, out)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                model.run(start, day1, output_writer=w, verbose=False)
+                if kind == "native":
+                    w.drain()
+                walls[kind].append(time.perf_counter() - t0)
+        print("[13] (a) Model.run 1 day with output every step: "
+              + ", ".join(f"{k} writer {' / '.join(f'{x:.3f}' for x in v)} "
+                          f"s/day" for k, v in walls.items())
+              + f" (in turns) on {card}")
+        del model
+
+        # (b) --auto-resume from (a)'s checkpoint to the second day
+        r2 = program("[13] (b)", "speedy_tpu_torch", *run, "--end",
+                     "1982-01-03", *ck, "--auto-resume", "--output-dir",
+                     d("b2"))
+        fused.reset_launches()
+        rc, text = in_process_cli(list(run) + [
+            "--end", "1982-01-03", "--output-dir", d("straight")])
+        n_k1 = fused.launches
+        # the boot, the warm-up day before the capture, the replayed days
+        expect = 2 + (CLI_DAYS + 1) * t30().nsteps
+        last = "198201030000.nc"
+        _, worst, _ = nc_diff(d("b2"), d("straight"), [last])
+        resumed = "resuming from" in r2.stdout and \
+            "ckpt_198201020000.npz" in r2.stdout
+        good = (r2.returncode == 0 and rc == 0 and resumed
+                and worst == 0.0 and n_k1 == expect)
+        ok &= good
+        print(f"[13] (b) --auto-resume from the day-1 checkpoint: "
+              f"{resumed}; its {last} against the straight 2-day run's "
+              f"(in this process): largest difference {worst:.3e}; the "
+              f"straight run's K1 launches {n_k1} (sw {fused.launches_sw}), "
+              f"expected {expect} (2 in the boot, 36 in the warm-up day "
+              f"before the capture, 36 a replayed day) "
+              f"{'ok' if good else 'FAILED'}")
+        for line in text.splitlines():
+            print(f"    {line}")
+
+        # (c) ensembles
+        ens = ("ensemble",) + COMMON
+        r1 = program("[13] (c)", "speedy_tpu_torch", *ens, "--members", "8",
+                     "--days", "2", "--output-dir", d("e8"))
+        members = sorted(os.listdir(d("e8"))) if os.path.isdir(d("e8")) \
+            else []
+        e8 = [os.listdir(d("e8", m)) for m in members]
+        r2 = program("[13] (c)", "speedy_tpu_torch", *ens, "--members", "2",
+                     "--days", "1", "--output-every-step", "--output-dir",
+                     d("e2"))
+        e2 = [len(os.listdir(d("e2", m))) for m in
+              (sorted(os.listdir(d("e2"))) if os.path.isdir(d("e2"))
+               else [])]
+        good = (r1.returncode == 0 and r2.returncode == 0
+                and len(members) == 8
+                and all(f == ["198201030000.nc"] for f in e8)
+                and e2 == [37, 37]
+                and "output writer: native" in r2.stdout)
+        ok &= good
+        print(f"[13] (c) ensemble 8 members 2 days: {len(members)} member "
+              f"files; 2 members 1 day every step: {e2} files, native "
+              f"writer taken: {'output writer: native' in r2.stdout} "
+              f"{'ok' if good else 'FAILED'}")
+    print(f"[13] phase time {time.perf_counter() - t_phase:.1f} s")
+    return ok
+
+
+def json_lines(text):
+    return [json.loads(line) for line in text.splitlines()
+            if line.startswith("{")]
+
+
+def validation_phase(card):
+    """[14] The validation programs on the card, each through its python -m
+    entry: the stability gate (GATE_RUNS), the T30 climatology over
+    CLIMATE_DAYS days and the fp32 qualification (QUAL_DAYS days,
+    QUAL_MEMBERS members, all parts, then the report)."""
+    t_phase = time.perf_counter()
+    ok = True
+    for presets, days in GATE_RUNS:
+        r = program("[14]", "speedy_tpu_torch.stability_gate", "--presets",
+                    presets, "--days", str(days), *COMMON)
+        rows = json_lines(r.stdout)
+        per = [x for x in rows if "preset" in x]
+        good = (len(per) == len(presets.split(",")) and r.returncode ==
+                (0 if all(x["pass"] for x in per) else 1)
+                and all(x["guard_clean"] and x["finite"] for x in per))
+        ok &= good
+        for x in per:
+            print(f"[14] stability gate {x['preset']} {x['days']} days: "
+                  f"guard_clean={x['guard_clean']} finite="
+                  f"{x.get('finite')} t_sfc_global_K="
+                  f"{x.get('t_sfc_global_K')} jet_max_ms="
+                  f"{x.get('jet_max_ms')} pass={x['pass']} wall "
+                  f"{x['wall_s']:.1f} s" + (f" error: {x['error']}"
+                                            if "error" in x else ""))
+        print(f"[14] {json.dumps(rows[-1]) if rows else 'no summary'} "
+              f"{'ok' if good else 'FAILED'}")
+    r = program("[14]", "speedy_tpu_torch.run_climatology", "--days",
+                str(CLIMATE_DAYS), *COMMON)
+    rows = json_lines(r.stdout)
+    good = r.returncode == 0 and len(rows) == 1 and rows[0]["finite"]
+    ok &= good
+    for line in r.stdout.splitlines():
+        print(f"[14] {line}")
+    print(f"[14] climatology on {card} {'ok' if good else 'FAILED'}")
+    with tempfile.TemporaryDirectory() as tmp:
+        r = program("[14]", "speedy_tpu_torch.fp32_qualification", "--days",
+                    str(QUAL_DAYS), "--members", str(QUAL_MEMBERS), "--out",
+                    tmp, *COMMON)
+    runs = json_lines(r.stdout)
+    table = [line for line in r.stdout.splitlines()
+             if re.match(r"\s*\d+\s", line)]
+    good = (r.returncode == 0 and len(runs) == 5
+            and all(x["finite"] for x in runs) and len(table) == QUAL_DAYS)
+    ok &= good
+    for line in r.stdout.splitlines():
+        print(f"[14] {line}")
+    print(f"[14] fp32 qualification on {card} {'ok' if good else 'FAILED'}")
+    print(f"[14] phase time {time.perf_counter() - t_phase:.1f} s")
+    return ok
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -968,6 +1223,12 @@ def main() -> int:
         return 1
     if not presets_phase(bc, card):
         print("[12] FAILED")
+        return 1
+    if not cli_phase(bc, card):
+        print("[13] FAILED")
+        return 1
+    if not validation_phase(card):
+        print("[14] FAILED")
         return 1
 
     kernels = []

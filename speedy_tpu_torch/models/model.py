@@ -79,13 +79,13 @@ class ModelState(NamedTuple):
 
 def resolve_device(device=None) -> torch.device:
     """The device to run on: ``cuda`` unless the caller names another. No
-    silent fall-back to the CPU."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "CUDA is not available; pass device='cpu' to run on the CPU")
-        device = "cuda"
-    return torch.device(device)
+    silent fall-back to the CPU: CUDA, named or by default, raises where
+    it is not available."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run on the CPU")
+    return device
 
 
 def _physics_fn(cfg, pp, daily, state, compute_sw, sppt_pattern=None):
@@ -459,7 +459,8 @@ class Model:
             resume_date: Optional[cal.Datetime] = None,
             model_step: int = 0,
             checkpoint_every: int = 0,
-            checkpoint_dir: Optional[str] = None) -> ModelState:
+            checkpoint_dir: Optional[str] = None,
+            debug_nans: bool = False) -> ModelState:
         """Main loop (speedy.f90:27-54), a day at a time, with the
         stability guard on every step's diagnostics, the diagnostics printed
         every ``nstdia`` steps (``verbose``), and
@@ -473,6 +474,11 @@ class Model:
         that many days into ``checkpoint_dir``, with the SST-anomaly window
         where that forcing is on. With it on, the window shifts before the
         first day of a month once past step 0.
+
+        ``debug_nans`` (the counterpart of the JAX package's
+        ``jax_debug_nans``, a debugging aid): the days run eagerly, step by
+        step (``checked_day``), and the first step that leaves a value
+        that is not finite raises FloatingPointError naming it.
         """
         cfg = self.cfg
         if state is None:
@@ -489,15 +495,22 @@ class Model:
         if checkpoint_every and checkpoint_dir:
             os.makedirs(checkpoint_dir, exist_ok=True)
         collect = output_writer is not None
-        cd = self.captured_day(state, collect_output=True, grids=collect)
-        cd.load(state)
+        cd = None
+        if not debug_nans:
+            cd = self.captured_day(state, collect_output=True, grids=collect)
+            cd.load(state)
+        current = lambda: state if cd is None else cd.result()
         day_count = 0
         while date < end:
             if cfg.sst_anomaly_forcing and date.day == 1 and model_step > 0:
                 self.advance_anomaly_window(start, date)
-            cd.set_days(self.make_ds_days(date, start, 1)[0])
-            cd.advance(0, self.sppt_noise)
-            day = cd.outputs()
+            if cd is None:
+                state, day = self.checked_day(state, date, start, model_step,
+                                              collect)
+            else:
+                cd.set_days(self.make_ds_days(date, start, 1)[0])
+                cd.advance(0, self.sppt_noise)
+                day = cd.outputs()
             for i in range(cfg.nsteps):
                 model_step += 1
                 date = cal.newdate(date, cfg.nsteps)
@@ -517,12 +530,39 @@ class Model:
                         f"{date.day:02d}{date.hour:02d}{date.minute:02d}.npz")
                 with host_sync():
                     save_checkpoint(
-                        os.path.join(checkpoint_dir, name), cd.result(),
+                        os.path.join(checkpoint_dir, name), current(),
                         date, model_step, start=start,
                         sstan3=(self.mc.clim.sstan3
                                 if cfg.sst_anomaly_forcing else None),
                         cfg=cfg)
-        return cd.result()
+        return current()
+
+    def checked_day(self, state: ModelState, date: cal.Datetime,
+                    start: cal.Datetime, model_step: int, grids: bool
+                    ) -> Tuple[ModelState, Dict[str, np.ndarray]]:
+        """The day from ``date`` run eagerly, step by step, with every
+        leaf of the state checked after each step: the first step (counted
+        on from ``model_step``) that leaves a value that is not finite
+        raises FloatingPointError naming the step and the field. Returns
+        the state and the day's outputs as ``CapturedDay.outputs`` gives
+        them (every step's diagnostics and, with ``grids``, gridded
+        fields), on the host."""
+        cfg, steps = self.cfg, []
+        for i, (state, diag) in enumerate(day_steps(
+                cfg, self.pp, self.lsp, self.mc, state,
+                self.date_scalars(date, start), 1, self.sppt_noise)):
+            for group, fields in zip(ModelState._fields, state[:3]):
+                for name, x in zip(fields._fields, fields):
+                    if not bool(torch.isfinite(x).all()):
+                        raise FloatingPointError(
+                            f"step {model_step + i + 1}: {group}.{name} "
+                            "is not finite")
+            out = diag._asdict()
+            if grids:
+                out.update(gridded_fields(cfg, self.mc, state.prog))
+            steps.append(out)
+        return state, _to_host({k: torch.stack([s[k] for s in steps])
+                                for k in steps[0]})
 
     def restore(self, path: str, start: cal.Datetime
                 ) -> Tuple[ModelState, cal.Datetime, int, dict]:

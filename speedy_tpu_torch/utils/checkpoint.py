@@ -111,6 +111,16 @@ def _restore(template, data, prefix: str = ""):
     return type(template)(**values)
 
 
+def checkpoint_start(path: str) -> Optional[Datetime]:
+    """The start date of the run that wrote the checkpoint ``path``, None
+    if it was not saved: a resumed run takes its season and SST-anomaly
+    phase from it, so read it before building the restore template."""
+    with np.load(path) as data:
+        if "__start__" not in data.files:
+            return None
+        return Datetime(*[int(x) for x in data["__start__"]])
+
+
 def load_checkpoint(path: str, template, cfg=None
                     ) -> Tuple[object, Datetime, int, dict]:
     """Restore a ModelState shaped like ``template`` (e.g. from

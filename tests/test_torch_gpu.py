@@ -36,7 +36,8 @@ T170 (kx=8), its fp32 outputs not equal to the default order's, with 1
 and 8 members, its refusal of bad inputs, and the main path's launches
 counted as reference-order ones; an SST-anomaly run across a month start
 replayed against the eager days (torch.equal); one K1 launch a step of a
-replayed T85 day.
+replayed T85 day. Model.run(debug_nans=True), the CLI's --debug-nans,
+against the replayed Model.run: the same state and written fields.
 """
 import ctypes
 import os
@@ -523,3 +524,28 @@ def test_run_checkpoint_resume_equals_straight_run(smoke, bc, tmp_path):
                     model_step=step, verbose=False)
     for a, b in zip(leaves(straight), leaves(resumed), strict=True):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("precision", ["fp64", "fp32"])
+def test_debug_nans_run_equals_replayed_run(smoke, bc, precision):
+    """The eager, checked day of Model.run(debug_nans=True) leaves the
+    replayed run's state and writes its fields (SPPT on)."""
+    m = Model(t30(precision=precision, sppt_on=True), device="cuda",
+              bc_arrays=bc)
+    runs = []
+    for debug_nans in (False, True):
+        written = {}
+
+        def writer(step, date, start, fields, written=written):
+            written[step] = {k: np.array(v) for k, v in fields.items()}
+
+        state = m.run(START, cal.next_day(START), output_writer=writer,
+                      verbose=False, debug_nans=debug_nans)
+        runs.append((state, written))
+    (a, wa), (b, wb) = runs
+    for x, y in zip(leaves(a), leaves(b), strict=True):
+        assert torch.equal(x, y)
+    assert sorted(wa) == sorted(wb) == list(range(m.cfg.nsteps + 1))
+    for step, fields in wa.items():
+        for k, v in fields.items():
+            np.testing.assert_array_equal(v, wb[step][k], err_msg=f"{step} {k}")
