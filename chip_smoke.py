@@ -104,7 +104,28 @@ Phases (each prints one line or more; any failure exits non-zero):
     and T85, 10 at T170), each preset guard-clean with finite fields, its
     t_sfc_global_K, jet_max_ms and pass printed; run_climatology over 365
     days at T30; fp32_qualification at T30 over 30 days with 64 members
-    (every part, then the report).
+    (every part, then the report);
+15. the dp axis (parallel/mesh.py), each rank a process started by
+    torchrun: (a) ``ensemble`` (fp32 T30 SPPT, 8 members, 2 days) over 2
+    ranks on cuda:0 with Gloo, each member's file equal to that of an
+    unsharded 4-member Ensemble with the rank's seeds made in this
+    process, the K1 launches of each rank (2 + 3 x 36), then the
+    aggregate member-days/min over 30 days beside one process's (that of
+    (c)), over the replayed days after the first and over the whole
+    wall; (b)
+    tests/torch_mesh_worker.py at fp64 over a day on 2 ranks on cuda:0:
+    the gathered state within 1e-12 of the unsharded 8-member Ensemble
+    per field and member, and a member pushed out of the guard's range on
+    the last rank raising on both; (c) one rank under NCCL against one
+    plain process over 30 days, file for file (the plain process's
+    member-days/min are (a)'s one process);
+16. the accumulating captured day replayed over 2 days against the eager
+    days (torch.equal in every state leaf and sum), then run_multiyear
+    over 2 years with the El Nino run: rc 0, both JSON lines, 48 finite
+    months, one host copy a month, the K1 launches, the wall and the
+    sim-days/min;
+17. stability_diag at T85 over 9 days in chunks of 3: status clean, the
+    npz arrays with the JAX script's shapes, the K1 launches.
 The last three lines are the kernel table, the card and the result line.
 Runs on the stand-in boundary set (speedy_tpu_torch/utils/synthetic_bc.py).
 """
@@ -1075,6 +1096,373 @@ def validation_phase(card):
     return ok
 
 
+DP_MEMBERS, DP_DAYS = 8, 2          # [15] (a)
+DP_TIMED_DAYS = 30                  # [15] (a), (c): member-days/min
+MULTIYEAR_YEARS = 2                 # [16]
+DIAG_PRESET, DIAG_DAYS, DIAG_CHUNK = "t85", 9, 3   # [17]
+
+
+def torchrun(label, nproc, *args, module=True):
+    """``python -m torch.distributed.run --standalone --nproc-per-node
+    nproc [-m] args`` from this checkout's root (``program``'s output and
+    timing)."""
+    import subprocess
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(nproc)] + (["-m"] if module else []) \
+        + list(args)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    r = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
+                       text=True, timeout=900)
+    print(f"{label} torchrun --nproc-per-node {nproc} "
+          f"{'-m ' if module else ''}{' '.join(args)}: rc {r.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return r
+
+
+def member_rate(text, over="initialize"):
+    """The ensemble command's member-days/min over the whole wall
+    ("initialize") or over the replayed days after the first
+    ("replayed")."""
+    m = re.search(r"([0-9.]+) member-days/min[^\n]*" + over, text)
+    return float(m.group(1)) if m else float("nan")
+
+
+def rank_launches(text):
+    """{rank: (K1 launches, SW launches)} from the ensemble command's
+    lines (one process: rank 0)."""
+    return {int(r or 0): (int(n), int(sw)) for r, n, sw in re.findall(
+        r"(?:rank (\d+): )?column-physics kernel launches (\d+) "
+        r"\(sw (\d+)\)", text)}
+
+
+def write_members(model, ens, estate, out, days, start, end, first=0):
+    """Every member's final fields as the ``ensemble`` command writes them
+    (NetCDFWriter, memberNNN/ by global index ``first`` + i)."""
+    from speedy_tpu_torch.utils.output import NetCDFWriter
+    for i in range(ens.n):
+        w = NetCDFWriter(model.cfg,
+                         os.path.join(out, f"member{first + i:03d}"))
+        fields = ens.member_fields(estate, i)
+        w(days * model.cfg.nsteps, end, start,
+          {k: v.cpu().numpy() for k, v in fields.items()})
+
+
+def dp_phase(bc, card):
+    """[15] The dp axis on the card: (a) ``ensemble`` over two ranks on one
+    GPU (Gloo), each rank's member files against an unsharded 4-member
+    Ensemble with the rank's seeds, made in this process, and the
+    aggregate member-days/min beside one process's (over the replayed
+    days after the first, and over the whole wall); (b) the same at fp64
+    over a day through tests/torch_mesh_worker.py, the gathered fp64
+    state against the unsharded 8-member Ensemble <= 1e-12 per field and
+    member, and the guard trip on the last rank raised by both; (c) one
+    rank under NCCL against one plain process over 30 days, file for file,
+    the plain process's rate being (a)'s one process."""
+    from speedy_tpu_torch.config import t30
+    from speedy_tpu_torch.models.model import Model
+    from speedy_tpu_torch.parallel.ensemble import Ensemble
+    from speedy_tpu_torch.utils import calendar as cal
+
+    t_phase = time.perf_counter()
+    start = cal.Datetime(1982, 1, 1)
+    ok = True
+    nsteps = t30().nsteps
+    with tempfile.TemporaryDirectory() as tmp:
+        d = lambda *p: os.path.join(tmp, *p)
+        ens = ("speedy_tpu_torch", "ensemble", "--synthetic-bc", "0",
+               "--members", str(DP_MEMBERS))
+        # every rank on the card [13]'s DEVICE names (cuda:0 for cuda)
+        rank_dev = "cuda:0" if DEVICE == "cuda" else DEVICE
+        two = ("--device", rank_dev)
+        # (a) two ranks on one card against 4-member Ensembles in-process
+        r = torchrun("[15] (a)", 2, *ens, *two, "--days", str(DP_DAYS),
+                     "--output-dir", d("dp2"))
+        launches = rank_launches(r.stdout)
+        expect = 2 + (DP_DAYS + 1) * nsteps
+        model = Model(t30(sppt_on=True), device=DEVICE, bc_arrays=bc)
+        end = start
+        per = DP_MEMBERS // 2
+        for first in (0, per):
+            e = Ensemble(model, per, base_seed=first)
+            estate, end = e.run_days(e.initialize(start), start, DP_DAYS)
+            write_members(model, e, estate, d("ref"), DP_DAYS, start, end,
+                          first)
+        worst = 0.0
+        same = r.returncode == 0
+        for m in range(DP_MEMBERS):
+            name = f"member{m:03d}"
+            if not os.path.isdir(d("dp2", name)):
+                same = False
+                continue
+            s_, w_, _ = nc_diff(d("dp2", name), d("ref", name))
+            same &= s_
+            worst = max(worst, w_)
+        good = (same and worst == 0.0 and "2-process dp mesh" in r.stdout
+                and {k: v[0] for k, v in launches.items()}
+                == {0: expect, 1: expect})
+        ok &= good
+        print(f"[15] (a) fp32 T30 SPPT {DP_MEMBERS} members {DP_DAYS} days "
+              f"over 2 ranks on {rank_dev} (Gloo): each member's file against "
+              f"the unsharded {per}-member Ensemble with the rank's seeds "
+              f"(in this process): the same files {same}, largest "
+              f"difference {worst:.3e}; K1 launches per rank {launches}, "
+              f"expected {expect} each (2 in the boot, {nsteps} in the "
+              f"warm-up day before the capture, {nsteps} a replayed day) "
+              f"{'ok' if good else 'FAILED'}")
+        if not good:
+            print(r.stdout[-3000:] + r.stderr[-3000:])
+        del model
+        # member-days/min of two ranks on one card; one process's is (c)'s
+        rates = {}
+        rr = torchrun("[15] (a)", 2, *ens, *two, "--days",
+                      str(DP_TIMED_DAYS), "--no-output")
+        ok &= rr.returncode == 0
+        rates["dp=2 (Gloo)"] = rr.stdout
+
+        # (b) fp64, one day, the gathered state against 8 members unsharded
+        os.makedirs(d("w"))
+        worker = os.path.join("tests", "torch_mesh_worker.py")
+        r = torchrun("[15] (b)", 2, worker, d("w"), "--device", rank_dev,
+                     "--grid", "t30", "--precision", "fp64", "--members",
+                     str(DP_MEMBERS), "--seed", "0", "--days", "1",
+                     module=False)
+        model = Model(t30(precision="fp64", sppt_on=True), device=DEVICE,
+                      bc_arrays=bc)
+        e = Ensemble(model, DP_MEMBERS)
+        estate, _ = e.run_days(e.initialize(start), start, 1)
+        worst, where = 0.0, None
+        try:
+            got = np.load(d("w", "gathered.npz"))
+            for group in ("prog", "surf", "rad"):
+                for f, v in getattr(estate, group)._asdict().items():
+                    g = got[f"{group}.{f}"]
+                    v = v.cpu().numpy()
+                    for m in range(DP_MEMBERS):
+                        err = float(np.abs(g[m] - v[m]).max()
+                                    / max(np.abs(v[m]).max(), 1e-300))
+                        if not err <= worst:
+                            worst, where = err, f"{group}.{f} member {m}"
+            said = [open(d("w", f"rank{k}.txt")).read() for k in (0, 1)]
+            tripped = all(x.startswith(
+                "Model variables out of accepted range at day 0, member "
+                f"{DP_MEMBERS // 2}") for x in said)
+        except OSError as exc:
+            tripped, worst, where = False, float("inf"), str(exc)
+        good = r.returncode != 0 and tripped and worst <= 1e-12
+        ok &= good
+        print(f"[15] (b) fp64 T30 SPPT {DP_MEMBERS} members 1 day over 2 "
+              f"ranks on {rank_dev} (Gloo), the gathered state against the "
+              f"unsharded {DP_MEMBERS}-member Ensemble: worst {worst:.3e} "
+              f"field-normalised (bound 1e-12) at {where}; a member pushed "
+              f"out of range on rank 1 raised on both ranks: {tripped} "
+              f"{'ok' if good else 'FAILED'}")
+        if not good:
+            print(r.stdout[-3000:] + r.stderr[-3000:])
+        del model
+
+        # (c) one rank under NCCL against one plain process, whose
+        # member-days/min are one process's beside (a)'s two ranks
+        r1 = torchrun("[15] (c)", 1, *ens, "--device", DEVICE, "--days",
+                      str(DP_TIMED_DAYS), "--output-dir", d("nccl"))
+        r2 = program("[15] (c)", *ens, "--device", DEVICE, "--days",
+                     str(DP_TIMED_DAYS), "--output-dir", d("plain"))
+        same = r1.returncode == 0 and r2.returncode == 0
+        worst = 0.0
+        for m in range(DP_MEMBERS):
+            name = f"member{m:03d}"
+            if not (os.path.isdir(d("nccl", name))
+                    and os.path.isdir(d("plain", name))):
+                same = False
+                continue
+            s_, w_, _ = nc_diff(d("nccl", name), d("plain", name))
+            same &= s_
+            worst = max(worst, w_)
+        expect = 2 + (DP_TIMED_DAYS + 1) * nsteps
+        good = same and worst == 0.0 and "1-process dp mesh" in r1.stdout \
+            and rank_launches(r1.stdout).get(0, (0,))[0] == expect
+        ok &= good
+        print(f"[15] (c) one rank under NCCL against one plain process, "
+              f"{DP_MEMBERS} members {DP_TIMED_DAYS} days: the same files "
+              f"{same}, largest difference {worst:.3e}; K1 launches "
+              f"{rank_launches(r1.stdout)}, expected {expect} "
+              f"{'ok' if good else 'FAILED'}")
+        if not good:
+            print(r1.stdout[-3000:] + r1.stderr[-3000:])
+        rates["one rank (NCCL)"] = r1.stdout
+        rates["one process"] = r2.stdout
+        rates = {k: (member_rate(v), member_rate(v, "replayed"))
+                 for k, v in rates.items()}
+        ratio = rates["dp=2 (Gloo)"][1] / rates["one process"][1]
+        print(f"[15] (a) aggregate member-days/min, {DP_MEMBERS} members "
+              f"{DP_TIMED_DAYS} days, fp32 T30 SPPT, over the "
+              f"{DP_TIMED_DAYS - 1} replayed days after the first (from the "
+              "first rank to begin them to the last to end) and over the "
+              "whole wall (initialize and capture included): " + "; ".join(
+                  f"{k} {v[1]:.1f} replayed, {v[0]:.1f} whole"
+                  for k, v in rates.items())
+              + f"; dp=2 / one process, replayed: {ratio:.3f} on {card}")
+    print(f"[15] phase time {time.perf_counter() - t_phase:.1f} s")
+    return ok
+
+
+def accumulate_vs_eager(model, start, days=2):
+    """The accumulating captured day (run_multiyear's) replayed over
+    ``days`` days under the sync debug mode "error" against the same days
+    of the eager module-level run_day with its fluxes, on a side stream,
+    summed as the day sums them: (equal in every state leaf and sum, what
+    differs)."""
+    from speedy_tpu_torch.models.captured import (ACC_FLUXES, ACC_GRIDS,
+                                                  leaves, step_sum)
+    from speedy_tpu_torch.models.model import gridded_fields, run_day
+    from speedy_tpu_torch.utils import calendar as cal
+    cfg = model.cfg
+    state = model.initialize(start)
+    cd = model.captured_day(state, accumulate=True)
+    cd.load(state)
+    cd.set_days(model.make_ds_days(start, start, days)[0])
+    cd.reset_accumulators()
+    cd.capture()
+    with sync_error():
+        for day in range(days):
+            cd.advance(day)
+    acc, _ = cd.accumulated(days)
+    replayed = cd.result()
+    cur, side = torch.cuda.current_stream(), torch.cuda.Stream()
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        sums = {k: torch.zeros_like(v) for k, v in cd.acc.items()}
+        date, s = start, state
+        for _ in range(days):
+            s, _, _, fl = run_day(cfg, model.pp, model.lsp, model.mc, s,
+                                  model.date_scalars(date, start),
+                                  cfg.diag_every, collect_fluxes=True)
+            g = gridded_fields(cfg, model.mc, s.prog)
+            for k in ACC_GRIDS:
+                sums[k].add_(g[k])
+            for k in ACC_FLUXES:
+                sums[k].add_(step_sum(list(getattr(fl, k))))
+            date = cal.next_day(date)
+    cur.wait_stream(side)
+    torch.cuda.synchronize()
+    differ = [f"leaf {i}" for i, (a, b) in enumerate(zip(leaves(replayed),
+                                                         leaves(s)))
+              if not torch.equal(a, b)]
+    differ += [k for k, v in sums.items()
+               if not np.array_equal(acc[k], v.cpu().numpy())]
+    return not differ, differ
+
+
+def multiyear_phase(card):
+    """[16] run_multiyear over MULTIYEAR_YEARS years with the El Nino run,
+    as a user types it: rc 0, both JSON lines, every month finite, one
+    host copy a month, the K1 launches, wall and sim-days/min; before it,
+    the accumulating day replayed against the eager days (fp32 T30, in
+    this process)."""
+    from speedy_tpu_torch.config import t30
+    from speedy_tpu_torch.models.model import Model
+    from speedy_tpu_torch.utils import calendar as cal
+    from speedy_tpu_torch.utils.synthetic_bc import synthetic_boundaries
+
+    t_phase = time.perf_counter()
+    model = Model(t30(), device=DEVICE, bc_arrays=synthetic_boundaries(0))
+    equal, differ = accumulate_vs_eager(model, cal.Datetime(1982, 1, 1))
+    print(f"[16] the accumulating day replayed 2 days against the eager "
+          f"days (fp32 T30, torch.equal in every state leaf and sum): "
+          f"{equal} {differ} {'ok' if equal else 'FAILED'}")
+    del model
+    ok = equal
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "clim.npz")
+        r = program("[16]", "speedy_tpu_torch.run_multiyear", "--years",
+                    str(MULTIYEAR_YEARS), "--elnino", "--out", out, *COMMON)
+        rows = json_lines(r.stdout)
+        olr = [float(x) for x in re.findall(r"done \(olr mean ([^)]+)\)",
+                                            r.stdout)]
+        n_months = 12 * MULTIYEAR_YEARS * 2
+        tail = re.search(r"(\d+) months, (\d+) host copies of the "
+                         r"accumulating days, column-physics kernel launches "
+                         r"(\d+) \(sw (\d+)\)", r.stdout)
+        days = 365 * MULTIYEAR_YEARS
+        nsteps = t30().nsteps
+        expect = 2 * (2 + (days + 1) * nsteps)
+        finite = False
+        if os.path.exists(out):
+            months = np.load(out, allow_pickle=True)["months"]
+            finite = len(months) == n_months // 2 and all(
+                np.isfinite(m[k]).all() for m in months
+                for k in ("u", "t", "precip", "olr", "tsr", "ssr"))
+        good = (r.returncode == 0 and len(rows) == 2
+                and rows[0].get("metric") == f"climatology_t30_"
+                f"{MULTIYEAR_YEARS}y"
+                and rows[1].get("metric") == "elnino_response_DJF"
+                and len(olr) == n_months and np.isfinite(olr).all()
+                and finite and tail is not None
+                and int(tail.group(1)) == n_months
+                and int(tail.group(2)) == n_months
+                and int(tail.group(3)) == expect)
+        ok &= good
+        for line in r.stdout.splitlines():
+            if not line.startswith("  "):
+                print(f"[16] {line}")
+        if rows:
+            print(f"[16] control run: wall {rows[0].get('wall_s')} s, "
+                  f"{rows[0].get('sim_days_per_min')} sim-days/min on {card}")
+        print(f"[16] {len(olr)} months printed, finite: "
+              f"{bool(olr) and bool(np.isfinite(olr).all())}; saved months "
+              f"finite: {finite}; expected {n_months} months, {n_months} "
+              f"host copies and {expect} K1 launches "
+              f"{'ok' if good else 'FAILED'}")
+        if not good:
+            print(r.stdout[-3000:] + r.stderr[-3000:])
+    print(f"[16] phase time {time.perf_counter() - t_phase:.1f} s")
+    return ok
+
+
+def diag_phase(card):
+    """[17] stability_diag at DIAG_PRESET over DIAG_DAYS days in chunks of
+    DIAG_CHUNK, as a user types it: rc 0, status clean, the npz arrays
+    with the JAX script's shapes, the K1 launches."""
+    from speedy_tpu_torch.config import from_preset
+    t_phase = time.perf_counter()
+    cfg = from_preset(DIAG_PRESET)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "stab.npz")
+        r = program("[17]", "speedy_tpu_torch.stability_diag", "--preset",
+                    DIAG_PRESET, "--days", str(DIAG_DAYS), "--chunk",
+                    str(DIAG_CHUNK), "--out", out, *COMMON)
+        rows = json_lines(r.stdout)
+        chunks = -(-DIAG_DAYS // DIAG_CHUNK)
+        nell = cfg.mx + cfg.nx - 1
+        want = dict(days=(chunks + 1,), ke_rot=(chunks + 1, nell, cfg.kx),
+                    ke_div=(chunks + 1, nell, cfg.kx),
+                    t_var=(chunks + 1, nell, cfg.kx), vor_max=(chunks + 1,),
+                    guard=(DIAG_DAYS, 5))
+        shapes = {}
+        if os.path.exists(out):
+            with np.load(out) as f:
+                shapes = {k: f[k].shape for k in f.files}
+        m = re.search(r"column-physics kernel launches (\d+) \(sw (\d+)\)",
+                      r.stdout)
+        expect = 2 + (DIAG_DAYS + 1) * cfg.nsteps
+        good = (r.returncode == 0 and rows and rows[-1].get("status") ==
+                "clean" and shapes == want and m is not None
+                and int(m.group(1)) == expect)
+        ok = bool(good)
+        for x in rows:
+            print(f"[17] {json.dumps(x)}")
+        print(f"[17] npz shapes {shapes} (the JAX script's {want}); K1 "
+              f"launches {m.group(1) if m else '?'}, expected {expect} (2 in "
+              f"the boot, {cfg.nsteps} in the warm-up day, {cfg.nsteps} a "
+              f"replayed day) on {card} {'ok' if ok else 'FAILED'}")
+        if not ok:
+            print(r.stdout[-3000:] + r.stderr[-3000:])
+    print(f"[17] phase time {time.perf_counter() - t_phase:.1f} s")
+    return ok
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1229,6 +1617,15 @@ def main() -> int:
         return 1
     if not validation_phase(card):
         print("[14] FAILED")
+        return 1
+    if not dp_phase(bc, card):
+        print("[15] FAILED")
+        return 1
+    if not multiyear_phase(card):
+        print("[16] FAILED")
+        return 1
+    if not diag_phase(card):
+        print("[17] FAILED")
         return 1
 
     kernels = []

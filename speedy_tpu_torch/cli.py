@@ -3,16 +3,24 @@
     python -m speedy_tpu_torch run --synthetic-bc 0 --start 1982-01-01 \\
         --end 1982-01-02
     python -m speedy_tpu_torch ensemble --synthetic-bc 0 --members 8
+    torchrun --nproc-per-node 4 -m speedy_tpu_torch ensemble \\
+        --synthetic-bc 0 --members 8
 
 The same sub-commands, flags, defaults and printed lines as the JAX CLI,
 with two flags that the port's setting asks for: ``--device`` (``cuda``
 by default; a run never falls back to the CPU) and ``--synthetic-bc SEED``
 (the seeded stand-in boundary set of utils/synthetic_bc.py, in memory, in
 place of the boundary files of ``--bc-path``, which are not in the
-repository). The reference's namelist file is accepted as it is
-(``--namelist``). Output goes through the native asynchronous writer
-(utils/native_output.py) and, where it cannot be built, the scipy writer
-(utils/output.py); a line names the writer taken.
+repository). Where the JAX CLI shards ``ensemble``'s members over the
+devices of one controller, the port runs one process per GPU under
+torchrun (parallel/mesh.py): each rank runs its block of members
+(``--device cuda`` means ``cuda:LOCAL_RANK``; ``--device cuda:0`` puts
+every rank on one GPU, over Gloo, since NCCL refuses a GPU twice), and
+rank 0 gathers the members and writes their final files. The reference's
+namelist file is accepted as it is (``--namelist``). Output goes through
+the native asynchronous writer (utils/native_output.py) and, where it
+cannot be built, the scipy writer (utils/output.py); a line names the
+writer taken.
 """
 from __future__ import annotations
 
@@ -56,6 +64,13 @@ def _dt(s: str) -> Datetime:
     return Datetime(*g)
 
 
+def _device(s: str) -> str:
+    if s in ("cuda", "cpu") or re.fullmatch(r"cuda:\d+", s):
+        return s
+    raise argparse.ArgumentTypeError(f"bad device {s!r}: cuda, cuda:N or "
+                                     "cpu")
+
+
 def add_boundary_args(p: argparse.ArgumentParser) -> None:
     """--bc-path or --synthetic-bc, and --device."""
     bc = p.add_mutually_exclusive_group()
@@ -63,9 +78,9 @@ def add_boundary_args(p: argparse.ArgumentParser) -> None:
     bc.add_argument("--synthetic-bc", type=int, metavar="SEED",
                     help="run on the seeded stand-in boundary set "
                          "(utils/synthetic_bc.py) instead of files")
-    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                   help="device to run on (default cuda; never falls back "
-                        "to the CPU)")
+    p.add_argument("--device", default="cuda", type=_device,
+                   help="device to run on: cuda, cuda:N or cpu (default "
+                        "cuda; never falls back to the CPU)")
 
 
 def boundary_kwargs(args) -> dict:
@@ -189,47 +204,107 @@ def main(argv=None):
 
 
 def _ensemble(args) -> int:
-    import numpy as np
+    """``ensemble``: in one process, or under torchrun (WORLD_SIZE set)
+    over a (world, 1) dp mesh of one process per rank."""
+    if "WORLD_SIZE" not in os.environ:
+        return _run_ensemble(args, None)
+    import torch.distributed as dist
+    from .parallel.mesh import initialize_distributed, make_mesh
+    world = int(os.environ["WORLD_SIZE"])
+    if args.members % world:
+        raise ValueError(
+            f"{args.members} members do not divide over {world} processes: "
+            "each process would run every member and write every member's "
+            "files; run a member count that the process count divides")
+    device = None if args.device == "cuda" else args.device
+    initialize_distributed(device=device)
+    try:
+        mesh = make_mesh(world, 1, device=device)
+        return _run_ensemble(args, mesh)
+    finally:
+        dist.destroy_process_group()
+
+
+def _run_ensemble(args, mesh) -> int:
     import torch
+    import torch.distributed as dist
+    from .convert import gather_members
     from .models.model import Model
+    from .models.physics import fused
+    from .models.state import PrognosticState
     from .parallel.ensemble import Ensemble
     from .utils.output import NetCDFWriter
 
     cfg = from_preset(args.preset, precision=args.precision, sppt_on=True)
-    model = Model(cfg, device=args.device, **boundary_kwargs(args))
-    ens = Ensemble(model, args.members, base_seed=args.seed)
-    print(f"speedy_tpu_torch ensemble: {args.members} members, "
-          f"{args.days} days, {args.preset.upper()}")
-    if model.device.type == "cuda" and torch.cuda.device_count() > 1:
-        print(f"note: {torch.cuda.device_count()} devices, members not "
-              "sharded: the ensemble runs on one")
+    model = Model(cfg, device=args.device if mesh is None else mesh.device,
+                  **boundary_kwargs(args))
+    ens = Ensemble(model, args.members, base_seed=args.seed, mesh=mesh)
+    lead = mesh is None or mesh.rank == 0
+    say = print if lead else (lambda *a, **k: None)
+    say(f"speedy_tpu_torch ensemble: {args.members} members, "
+        f"{args.days} days, {args.preset.upper()}"
+        + (f", {mesh.dp}-process dp mesh" if mesh else ""))
     writers = None
     if args.output_every_step and not args.no_output:
         writers = []
-        for i in range(args.members):
+        for i in ens.members:
             w, line = make_writer(
                 cfg, os.path.join(args.output_dir, f"member{i:03d}"))
             writers.append(w)
-        print(line)
+        say(line)
+    first_done = []
+
+    def after_day(day: int) -> None:
+        # day 0 holds the warm-up day and the capture of the replayed day
+        if day == 0:
+            synchronize(model)
+            first_done.append(time.time())
+
     t0 = time.time()
     estate = ens.initialize(args.start)
     estate, end_date = ens.run_days(estate, args.start, args.days,
-                                    output_writers=writers)
+                                    output_writers=writers,
+                                    after_day=after_day)
     synchronize(model)
     for w in writers or ():
         _drain(w)
-    print(f"done at {end_date} in {time.time() - t0:.1f}s")
+    t_end = time.time()
+    wall = t_end - t0
+    say(f"done at {end_date} in {wall:.1f}s")
+    say(f"{args.members * args.days / wall * 60.0:.1f} member-days/min "
+        "(initialize and capture included)")
+    if args.days > 1:
+        # from the first rank to begin day 2 to the last rank to end
+        span = torch.tensor([-first_done[0], t_end], dtype=torch.float64)
+        if mesh is not None:
+            span = span.to(mesh.host_device())
+            dist.all_reduce(span, op=dist.ReduceOp.MAX)
+        span = float(span.sum())
+        say(f"{args.members * (args.days - 1) / span * 60.0:.1f} "
+            f"member-days/min over the {args.days - 1} replayed days after "
+            "the first")
+    if model.device.type == "cuda":
+        print(("" if mesh is None else f"rank {mesh.rank}: ")
+              + f"column-physics kernel launches {fused.launches} "
+              f"(sw {fused.launches_sw})")
     if writers is not None:
-        print(f"wrote per-step member files to {args.output_dir}/"
-              f"memberNNN/")
+        say(f"wrote per-step member files to {args.output_dir}/"
+            f"memberNNN/")
     if not args.no_output and writers is None:
-        for i in range(args.members):
-            w = NetCDFWriter(cfg, os.path.join(args.output_dir,
-                                               f"member{i:03d}"))
-            fields = {k: v.cpu().numpy() for k, v in
-                      ens.member_fields(estate, i).items()}
-            w(args.days * cfg.nsteps, end_date, args.start, fields)
-        print(f"wrote member states to {args.output_dir}/")
+        tree = gather_members(estate, mesh) if mesh else None
+        if lead:
+            for i in range(args.members):
+                if mesh is None:
+                    fields = ens.member_fields(estate, i)
+                else:
+                    fields = model.gridded_fields(PrognosticState(**{
+                        f: torch.as_tensor(v[i], device=model.device)
+                        for f, v in tree["prog"].items()}))
+                w = NetCDFWriter(cfg, os.path.join(args.output_dir,
+                                                   f"member{i:03d}"))
+                w(args.days * cfg.nsteps, end_date, args.start,
+                  {k: v.cpu().numpy() for k, v in fields.items()})
+            print(f"wrote member states to {args.output_dir}/")
     return 0
 
 

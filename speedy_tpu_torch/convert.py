@@ -13,7 +13,9 @@ the SPPT state gets a new generator seeded with 0.
 
 An ensemble's state (the JAX package's Ensemble state, every leaf [M, ...])
 converts the same way, member axis and all; its SPPT state gets one
-generator per member, member i's seeded with i.
+generator per member, member i's seeded with i. ``gather_members`` brings
+the members that the ranks of a dp mesh hold to one rank, in global
+order, as such a tree.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .models.model import ModelState
 from .models.physics import SurfaceState
@@ -68,3 +71,22 @@ def model_state_to_numpy(state: ModelState) -> Dict[str, Dict[str, np.ndarray]]:
     if state.sppt is not None:
         tree["sppt"] = {"spec": state.sppt.spec.cpu().numpy()}
     return tree
+
+
+def gather_members(estate: ModelState, mesh=None, dst: int = 0):
+    """An ensemble state split over the ranks of ``mesh``
+    (parallel/mesh.py) as one numpy tree (``model_state_to_numpy``) of
+    all members in global order, on rank ``dst``; other ranks get None.
+    A collective: every rank calls it. Without a mesh or process group,
+    the state's own tree."""
+    tree = model_state_to_numpy(estate)
+    if mesh is None or mesh.backend is None:
+        return tree
+    parts = [None] * (mesh.dp * mesh.sp) if mesh.rank == dst else None
+    dist.gather_object(tree, parts, dst=dst)
+    if mesh.rank != dst:
+        return None
+    # ranks in dp order (sp = 1), each a contiguous block of members
+    return {group: {f: np.concatenate([p[group][f] for p in parts])
+                    for f in tree[group]}
+            for group in tree}

@@ -13,8 +13,13 @@ behind day d's replay and the host does not wait. The device part
 and ends by copying the new state back into the static state, so one
 replay maps static state to static state; it also writes the day's guard
 extrema and, for the output variants, every step's diagnostics and, where
-grids are written, gridded fields into static buffers. On the CPU the
-same staged day runs eagerly.
+grids are written, gridded fields into static buffers. The accumulating
+variant (``accumulate``) adds, at each replay, the day-end gridded u and
+t and the step-summed precipitation and radiation fluxes into static
+accumulators (the JAX package's month_span carry,
+scripts/run_multiyear.py); they are zeroed outside the graph
+(``reset_accumulators``) and reach the host with the guard rows in one
+copy (``accumulated``). On the CPU the same staged day runs eagerly.
 
 The graph bakes in the addresses it read at capture: the static buffers
 and every constant of ``model.mc``, ``model.pp`` and ``model.lsp``.
@@ -36,7 +41,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,6 +50,10 @@ from . import coupling
 from .physics import fused
 from .physics.sppt import draw_day
 from ..utils.diagnostics import Diagnostics, guard_extrema
+
+# the accumulating variant's sums: day-end gridded fields, then step fluxes
+ACC_GRIDS = ("u", "t")
+ACC_FLUXES = ("precnv", "precls", "olr", "tsr", "ssr")
 
 
 @contextlib.contextmanager
@@ -92,6 +101,25 @@ def copy_state(dst, src) -> None:
         d.copy_(s)
 
 
+def step_sum(xs):
+    """The sum of a day's per-step tensors, added in step order (how the
+    accumulating day sums its fluxes)."""
+    total = xs[0]
+    for x in xs[1:]:
+        total = total + x
+    return total
+
+
+def _views(flat, shapes):
+    """Views of ``flat`` with the given shapes, back to back."""
+    out, off = {}, 0
+    for k, s in shapes.items():
+        n = int(np.prod(s))
+        out[k] = flat[off:off + n].reshape(s)
+        off += n
+    return out
+
+
 def _rebuild(template, tensors, generator):
     """A ModelState shaped like ``template`` from its tensors in ``leaves``
     order and the SPPT generator(s)."""
@@ -108,14 +136,17 @@ class CapturedDay:
     """One simulated day of ``model`` for states shaped like ``template``
     (one model's, or an ensemble's with a leading member axis), with
     diagnostics every ``diag_every`` steps; with ``collect_output`` they
-    are kept as outputs, and with ``grids`` every step's gridded fields.
-    Use: ``load(state)``, ``set_days(rows)``, then ``advance(d, noise)``
-    for each day d of the rows; ``guard_rows``, ``outputs`` and ``result``
-    read what the days left. ``pool``: the graph memory pool to share
-    (``torch.cuda.graph_pool_handle()``)."""
+    are kept as outputs, and with ``grids`` every step's gridded fields;
+    with ``accumulate`` each day adds into the accumulators (the module
+    docstring). Use: ``load(state)``, ``set_days(rows)``, then
+    ``advance(d, noise)`` for each day d of the rows; ``guard_rows``,
+    ``outputs``, ``accumulated`` and ``result`` read what the days left,
+    each in one host copy (counted in ``host_copies``). ``pool``: the
+    graph memory pool to share (``torch.cuda.graph_pool_handle()``)."""
 
     def __init__(self, model, template, diag_every: int,
-                 collect_output: bool, grids: bool = False, pool=None):
+                 collect_output: bool, grids: bool = False, pool=None,
+                 accumulate: bool = False):
         from .model import day_steps, gridded_fields
         self._day_steps, self._gridded = day_steps, gridded_fields
         cfg = self.cfg = model.cfg
@@ -124,7 +155,8 @@ class CapturedDay:
         # to the garbage collector
         self.pp, self.lsp, self.mc = model.pp, model.lsp, model.mc
         self.diag_every, self.collect = diag_every, collect_output
-        self.grids = grids
+        self.grids, self.accumulate = grids, accumulate
+        self.host_copies = 0
         dev = self.device = template.prog.vor.device
         dtype = cfg.rdtype
         zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=dev)
@@ -151,13 +183,18 @@ class CapturedDay:
                 {k: (cfg.nsteps,) + lead + (cfg.kx,) + grid
                  for k in ("u", "v", "t", "q", "phi")},
                 ps=(cfg.nsteps,) + lead + grid)
-        numels = [int(np.prod(s)) for s in self.out_shapes.values()]
-        self.out_flat = zeros(sum(numels))
-        self.out = {}
-        off = 0
-        for (k, s), n in zip(self.out_shapes.items(), numels):
-            self.out[k] = self.out_flat[off:off + n].view(s)
-            off += n
+        self.out_flat = zeros(sum(int(np.prod(s))
+                                  for s in self.out_shapes.values()))
+        self.out = _views(self.out_flat, self.out_shapes)
+        # the accumulating variant's sums, views of one buffer
+        self.acc_shapes = {}
+        if accumulate:
+            grid = (cfg.il, cfg.ix)
+            self.acc_shapes = {k: lead + (cfg.kx,) + grid for k in ACC_GRIDS}
+            self.acc_shapes.update({k: lead + grid for k in ACC_FLUXES})
+        self.acc_flat = zeros(sum(int(np.prod(s))
+                                  for s in self.acc_shapes.values()))
+        self.acc = _views(self.acc_flat, self.acc_shapes)
         self.generator = None
         self.pool = pool
         self.graph = None
@@ -170,17 +207,26 @@ class CapturedDay:
         """The device part: the day from the static buffers back into
         them."""
         cfg = self.cfg
-        diags = []
-        for i, (state, diag) in enumerate(self._day_steps(
+        diags, fluxes = [], []
+        for i, (state, outs) in enumerate(self._day_steps(
                 cfg, self.pp, self.lsp, self.mc, self.state, self.ds,
-                self.diag_every, eta=self.eta)):
-            if diag is not None:
-                diags.append(diag)
+                self.diag_every, eta=self.eta,
+                with_fluxes=self.accumulate)):
+            if outs.diag is not None:
+                diags.append(outs.diag)
+            if self.accumulate:
+                fluxes.append(outs.fluxes)
             if self.grids:
                 for k, g in self._gridded(cfg, self.mc, state.prog).items():
                     self.out[k][i].copy_(g)
         copy_state(self.state, state)
         self.guard.copy_(guard_extrema(diags))
+        if self.accumulate:
+            g = self._gridded(cfg, self.mc, state.prog)
+            for k in ACC_GRIDS:
+                self.acc[k].add_(g[k])
+            for k in ACC_FLUXES:
+                self.acc[k].add_(step_sum([getattr(f, k) for f in fluxes]))
         if self.collect:
             for f in Diagnostics._fields:
                 self.out[f].copy_(torch.stack([getattr(d, f)
@@ -188,9 +234,10 @@ class CapturedDay:
 
     def capture(self) -> None:
         """On CUDA, warm up one day (the first staged date row) on a side
-        stream on the staged state, stage the loaded state again, and
-        capture the day; a no-op once captured or on the CPU. Needs
-        ``load`` and ``set_days`` first; ``advance`` calls it."""
+        stream on the staged state, stage the loaded state (and the
+        accumulators as they were) again, and capture the day; a no-op
+        once captured or on the CPU. Needs ``load`` and ``set_days``
+        first; ``advance`` calls it."""
         if self.graph is not None or self.device.type != "cuda":
             return
         if self._source is None or self.days.shape[0] == 0:
@@ -198,12 +245,14 @@ class CapturedDay:
                                "first day")
         with host_sync():
             self.date.copy_(self.days[0])
+            acc = self.acc_flat.clone()
             side = torch.cuda.Stream(self.device)
             side.wait_stream(torch.cuda.current_stream(self.device))
             with torch.cuda.stream(side):
                 self._body()
             torch.cuda.current_stream(self.device).wait_stream(side)
             copy_state(self.state, self._source)
+            self.acc_flat.copy_(acc)
             before = {n: getattr(fused, n) for n in fused.COUNTERS}
             graph = torch.cuda.CUDAGraph()
             # a collection inside the capture could destroy another graph
@@ -278,26 +327,44 @@ class CapturedDay:
             self._body()
         self.rows[d].copy_(self.guard)
 
+    def reset_accumulators(self) -> None:
+        """Zero the accumulating variant's sums, on the stream the replays
+        run on (no host synchronisation)."""
+        self.acc_flat.zero_()
+
     # ------------------------------------------------------------------
+    def _fetch(self, tensor: torch.Tensor) -> np.ndarray:
+        """A host copy of ``tensor`` (a copy on the CPU too, where
+        ``.cpu()`` would return the static buffer itself, which the next
+        day overwrites)."""
+        self.host_copies += 1
+        with host_sync():
+            return tensor.to("cpu", copy=True).numpy()
+
     def guard_rows(self, n: int) -> np.ndarray:
         """The guard extrema of days 0..n-1 of the staged rows, [n, 4, ...,
         kx], in one host copy."""
-        with host_sync():
-            return self.rows[:n].cpu().numpy()
+        return self._fetch(self.rows[:n])
+
+    def accumulated(self, n: int) -> Tuple[Dict[str, np.ndarray],
+                                           np.ndarray]:
+        """The accumulating variant's sums since the last
+        ``reset_accumulators`` (u, t [..., kx, il, ix] summed over the
+        days' ends; precnv, precls, olr, tsr, ssr [..., il, ix] summed over
+        their steps) and the guard rows of days 0..n-1 (``guard_rows``),
+        together in one host copy."""
+        flat = self._fetch(torch.cat([self.acc_flat,
+                                      self.rows[:n].reshape(-1)]))
+        size = self.acc_flat.numel()
+        return (_views(flat[:size], self.acc_shapes),
+                flat[size:].reshape((n,) + tuple(self.guard.shape)))
 
     def outputs(self) -> Dict[str, np.ndarray]:
         """The last day's outputs (the output variants) in one host copy:
         every step's diagnostics (reke, deke, tmean [nsteps, ..., kx]) and,
         with ``grids``, gridded fields (u, v, t, q, phi [nsteps, ..., kx,
         il, ix], ps [nsteps, ..., il, ix])."""
-        with host_sync():
-            flat = self.out_flat.cpu().numpy()
-        out, off = {}, 0
-        for k, s in self.out_shapes.items():
-            n = int(np.prod(s))
-            out[k] = flat[off:off + n].reshape(s)
-            off += n
-        return out
+        return _views(self._fetch(self.out_flat), self.out_shapes)
 
     def result(self):
         """The staged state as a new ModelState (a copy: the next replay

@@ -23,7 +23,7 @@ window in place, on the stream the days run on.
 from __future__ import annotations
 
 import os
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,7 +44,7 @@ from .captured import CapturedDay, host_sync, members_of
 from .geopotential import build_geopotential, get_geopotential
 from .hdiffusion import build_diffusion, build_diffusion_np, DiffusionConsts
 from .implicit import build_implicit, ImplicitConsts
-from .physics import (DailyForcing, PhysicsParams, SurfaceState,
+from .physics import (DailyForcing, Fluxes, PhysicsParams, SurfaceState,
                       build_physics_params, get_physical_tendencies)
 from .physics.shortwave import init_radiation_state, RadiationState
 from .physics.sppt import (Noise, SpptState, gen_sppt, init_sppt_state,
@@ -96,18 +96,28 @@ def _physics_fn(cfg, pp, daily, state, compute_sw, sppt_pattern=None):
     return physics_fn
 
 
+class StepOutputs(NamedTuple):
+    """What a step gives besides the state: the stability diagnostics
+    (None on a step without them) and, where asked for, the physics flux
+    diagnostics with the surface fluxes dropped (``Fluxes`` with ``sfc``
+    None; the JAX package's StepOutputs)."""
+    diag: Optional[Diagnostics]
+    fluxes: Optional[Fluxes] = None
+
+
 def one_step(cfg: ModelConfig, pp: PhysicsParams,
              lsp: coupling.LandSeaParams, mc: ModelConsts, state: ModelState,
              daily: DailyForcing, compute_sw: bool, couple_next: bool = False,
              with_diag: bool = True, noise: Noise = None,
-             eta: Optional[torch.Tensor] = None
-             ) -> Tuple[ModelState, Optional[Diagnostics]]:
+             eta: Optional[torch.Tensor] = None, with_fluxes: bool = False
+             ) -> Tuple[ModelState, StepOutputs]:
     """One leapfrog step with physics, then the slab coupling. On the
     day's last step ``couple_next`` couples with the next day's
     climatology (speedy.f90:47-53). With ``sppt_on`` the SPPT state takes
     its AR(1) update first and its pattern rides the step's synthesis;
     ``eta`` holds the update's innovations drawn ahead, else ``noise``
-    supplies them (physics/sppt.py)."""
+    supplies them (physics/sppt.py). With ``with_fluxes`` the outputs
+    carry the step's precipitation and radiation fluxes [..., il, ix]."""
     corr = OrographicCorrection(tcorh=daily.tcorh, qcorh=daily.qcorh)
     sppt_spec, sppt_state = None, state.sppt
     if cfg.sppt_on:
@@ -122,8 +132,9 @@ def one_step(cfg: ModelConfig, pp: PhysicsParams,
     now = time_level(prog, 1)
     diag = compute_diagnostics(mc.dyn.sc, now.vor, now.div,
                                now.t) if with_diag else None
+    fluxes = aux.fluxes._replace(sfc=None) if with_fluxes else None
     return ModelState(prog=prog, surf=surf, rad=aux.rad,
-                      sppt=sppt_state), diag
+                      sppt=sppt_state), StepOutputs(diag, fluxes)
 
 
 def gridded_fields(cfg: ModelConfig, mc: ModelConsts, prog: PrognosticState,
@@ -150,14 +161,15 @@ def day_steps(cfg: ModelConfig, pp: PhysicsParams,
               lsp: coupling.LandSeaParams, mc: ModelConsts,
               state: ModelState, ds: coupling.DateScalars,
               diag_every: int = 1, noise: Noise = None,
-              eta: Optional[torch.Tensor] = None):
+              eta: Optional[torch.Tensor] = None, with_fluxes: bool = False):
     """The day's steps: nsteps steps as triples of nstrad steps with the
     shortwave on the first of each (speedy.f90:35), after the daily update
-    from ``ds`` and the day-start surface. Yields (state, diagnostics or
-    None) after each step, with diagnostics every ``diag_every`` steps
-    (must divide nstrad). With SPPT, ``eta`` [nsteps, ...] holds the
-    day's innovations drawn ahead (sppt.draw_day), else ``noise`` or the
-    state's generator supplies them step by step."""
+    from ``ds`` and the day-start surface. Yields (state, StepOutputs)
+    after each step, with diagnostics every ``diag_every`` steps (must
+    divide nstrad) and, with ``with_fluxes``, the step's fluxes. With
+    SPPT, ``eta`` [nsteps, ...] holds the day's innovations drawn ahead
+    (sppt.draw_day), else ``noise`` or the state's generator supplies them
+    step by step."""
     if cfg.nstrad % diag_every:
         raise ValueError(f"diag_every={diag_every} must divide "
                          f"nstrad={cfg.nstrad}")
@@ -165,33 +177,41 @@ def day_steps(cfg: ModelConfig, pp: PhysicsParams,
                                   state.surf)
     for istep in range(cfg.nsteps):
         i = istep % cfg.nstrad
-        state, diag = one_step(cfg, pp, lsp, mc, state, daily,
+        state, outs = one_step(cfg, pp, lsp, mc, state, daily,
                                compute_sw=(i == 0),
                                couple_next=(istep == cfg.nsteps - 1),
                                with_diag=((i + 1) % diag_every == 0),
                                noise=noise,
-                               eta=None if eta is None else eta[istep])
-        yield state, diag
+                               eta=None if eta is None else eta[istep],
+                               with_fluxes=with_fluxes)
+        yield state, outs
 
 
 def run_day(cfg: ModelConfig, pp: PhysicsParams, lsp: coupling.LandSeaParams,
             mc: ModelConsts, state: ModelState, ds: coupling.DateScalars,
             diag_every: int = 1, noise: Noise = None,
-            collect_output: bool = False
-            ) -> Tuple[ModelState, List[Diagnostics],
-                       Optional[List[Dict[str, torch.Tensor]]]]:
+            collect_output: bool = False, collect_fluxes: bool = False):
     """One simulated day run eagerly, step by step (model.py run_day of
-    the JAX package; ``day_steps``). Diagnostics every ``diag_every``
-    steps; with ``collect_output`` the gridded fields after every step
-    (on the device), else None."""
-    diags = []
+    the JAX package; ``day_steps``): (state, diagnostics every
+    ``diag_every`` steps, grids), where grids are the gridded fields after
+    every step (on the device) with ``collect_output``, else None. With
+    ``collect_fluxes`` a fourth item follows: every step's precipitation
+    and radiation fluxes, ``Fluxes`` of [nsteps, ..., il, ix] with
+    ``sfc`` None (the JAX run_day's ``outs.fluxes``)."""
+    diags, fluxes = [], []
     grids = [] if collect_output else None
-    for state, diag in day_steps(cfg, pp, lsp, mc, state, ds, diag_every,
-                                 noise):
-        if diag is not None:
-            diags.append(diag)
+    for state, outs in day_steps(cfg, pp, lsp, mc, state, ds, diag_every,
+                                 noise, with_fluxes=collect_fluxes):
+        if outs.diag is not None:
+            diags.append(outs.diag)
+        if collect_fluxes:
+            fluxes.append(outs.fluxes)
         if collect_output:
             grids.append(gridded_fields(cfg, mc, state.prog))
+    if collect_fluxes:
+        return state, diags, grids, Fluxes(
+            *[None if xs[0] is None else torch.stack(xs)
+              for xs in zip(*fluxes)])
     return state, diags, grids
 
 
@@ -380,34 +400,38 @@ class Model:
         return state, diags
 
     def captured_day(self, state: ModelState, collect_output: bool = False,
-                     grids: bool = False) -> CapturedDay:
+                     grids: bool = False, accumulate: bool = False
+                     ) -> CapturedDay:
         """The staged day (models/captured.py) for ``state``'s member count
         and variant: without output, diagnostics every ``cfg.diag_every``
         steps for the guard; with ``collect_output``, every step's
-        diagnostics and, with ``grids``, gridded fields. One per (members,
-        variant), made at first use and captured at its first day on CUDA;
-        a model's graphs share one memory pool."""
-        key = (members_of(state), collect_output, grids)
+        diagnostics and, with ``grids``, gridded fields; with
+        ``accumulate``, the monthly sums of run_multiyear. One per
+        (members, variant), made at first use and captured at its first
+        day on CUDA; a model's graphs share one memory pool."""
+        key = (members_of(state), collect_output, grids, accumulate)
         cd = self._captured.get(key)
         if cd is None:
             if self.device.type == "cuda" and self.graph_pool is None:
                 self.graph_pool = torch.cuda.graph_pool_handle()
             cd = self._captured[key] = CapturedDay(
                 self, state, 1 if collect_output else self.cfg.diag_every,
-                collect_output, grids, self.graph_pool)
+                collect_output, grids, self.graph_pool, accumulate)
         return cd
 
     def run_staged(self, cd: CapturedDay, date: cal.Datetime,
                    start: cal.Datetime, n_days: int, noise: Noise,
                    check: bool = True, max_chunk_days: int = 90,
-                   after_day=None, anomaly_months: bool = False
-                   ) -> cal.Datetime:
+                   after_day=None, anomaly_months: bool = False,
+                   guard=check_days) -> cal.Datetime:
         """Advance the state loaded into ``cd`` ``n_days`` from ``date``
         (run began at ``start``), in chunks of at most ``max_chunk_days``:
         a chunk's date inputs reach the device in one copy, each day is
         one replay, and with ``check`` the guard is checked on every day's
         extrema once a chunk (one host synchronisation), naming the first
-        day out of range (counted from ``date``). ``after_day(i)`` runs
+        day out of range (counted from ``date``): ``guard(rows,
+        first_day)`` (``check_days`` by default; an ensemble over several
+        ranks reduces it over them). ``after_day(i)`` runs
         after day i's replay. With ``anomaly_months`` and SST-anomaly
         forcing on, a chunk also ends at a month's end, and the anomaly
         window shifts before each month start after ``date`` (the JAX
@@ -429,7 +453,7 @@ class Model:
                 if after_day is not None:
                     after_day(done + d)
             if check:
-                check_days(cd.guard_rows(chunk), done)
+                guard(cd.guard_rows(chunk), done)
             done += chunk
         return date
 
@@ -548,7 +572,7 @@ class Model:
         them (every step's diagnostics and, with ``grids``, gridded
         fields), on the host."""
         cfg, steps = self.cfg, []
-        for i, (state, diag) in enumerate(day_steps(
+        for i, (state, outs) in enumerate(day_steps(
                 cfg, self.pp, self.lsp, self.mc, state,
                 self.date_scalars(date, start), 1, self.sppt_noise)):
             for group, fields in zip(ModelState._fields, state[:3]):
@@ -557,7 +581,7 @@ class Model:
                         raise FloatingPointError(
                             f"step {model_step + i + 1}: {group}.{name} "
                             "is not finite")
-            out = diag._asdict()
+            out = outs.diag._asdict()
             if grids:
                 out.update(gridded_fields(cfg, self.mc, state.prog))
             steps.append(out)

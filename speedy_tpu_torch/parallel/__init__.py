@@ -1,4 +1,5 @@
-"""Ensembles: the members of a model advanced together on one device."""
+"""Ensembles: the members of a model advanced together, on one device or
+split over the ranks of a dp mesh (mesh.py)."""
 from .ensemble import Ensemble
 
 __all__ = ["Ensemble"]

@@ -14,17 +14,28 @@ off every member equals the single model. With SST-anomaly forcing, as in
 the JAX package, ``initialize`` sets the model's anomaly window (through
 ``Model.initialize``) and ``run_days`` never shifts it, however many
 month starts it crosses.
+
+With a mesh (parallel/mesh.py) the members are split over the 'dp' ranks,
+one process each: a rank holds the contiguous block ``mesh.members(M)``
+of global members and runs them through its own captured day, with no
+collective inside the day. Member g keeps the seed ``base_seed + g``, so
+its trajectory does not depend on the sharding. The guard's rows are
+reduced over the ranks once per chunk of days, on the host, so every
+rank raises at the same chunk naming the same member and day.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models.model import (GRID_FIELDS, Model, ModelState, gridded_fields,
                             _to_host)
 from ..models.physics.sppt import Noise, init_sppt_state, stack_states
 from ..utils import calendar as cal
+from ..utils.diagnostics import InstabilityError, bad_days
 
 
 def broadcast_state(state: ModelState, n: int) -> ModelState:
@@ -41,16 +52,35 @@ class Ensemble:
     ``noise``: optional sequence of ``n_members`` innovation sources
     (models/physics/sppt.py), member i's; it replaces the members'
     generators (the parity tests feed the JAX key chains through it).
+    ``mesh``: a ('dp', 'sp') mesh (parallel/mesh.make_mesh); this rank
+    then holds the global members ``self.members`` on the mesh's device,
+    which must be the model's, and ``noise`` is sliced to them.
     """
 
     def __init__(self, model: Model, n_members: int, base_seed: int = 0,
-                 noise: Optional[Sequence] = None):
+                 noise: Optional[Sequence] = None, mesh=None):
         if n_members < 1:
             raise ValueError(f"n_members={n_members}: need at least one")
+        if noise is not None and len(noise) != n_members:
+            raise ValueError(f"{len(noise)} noise sources for {n_members} "
+                             "members")
         self.model = model
         self.n = n_members
         self.base_seed = base_seed
+        self.mesh = mesh
+        self.members = range(n_members) if mesh is None \
+            else mesh.members(n_members)
+        if mesh is not None and mesh.device != model.device:
+            raise ValueError(f"the model is on {model.device}, the rank's "
+                             f"mesh device is {mesh.device}")
+        if noise is not None:
+            noise = list(noise)[self.members.start:self.members.stop]
         self.noise: Noise = noise
+
+    @property
+    def n_local(self) -> int:
+        """The members this rank holds."""
+        return len(self.members)
 
     def initialize(self, start: cal.Datetime) -> ModelState:
         """The model's booted state on every member; with SPPT, then each
@@ -59,37 +89,39 @@ class Ensemble:
         SPPT states replace the booted one afterwards, so they have not
         been advanced by the boot."""
         model, cfg = self.model, self.model.cfg
-        estate = broadcast_state(model.initialize(start), self.n)
+        estate = broadcast_state(model.initialize(start), self.n_local)
         if cfg.sppt_on:
-            sources = self.noise or [None] * self.n
+            sources = self.noise or [None] * self.n_local
             estate = estate._replace(sppt=stack_states([
-                init_sppt_state(cfg, model.pp.sppt_sigma, self.base_seed + i,
-                                sources[i])
-                for i in range(self.n)]))
+                init_sppt_state(cfg, model.pp.sppt_sigma, self.base_seed + g,
+                                src)
+                for g, src in zip(self.members, sources)]))
         return estate
 
     def run_days(self, estate: ModelState, start: cal.Datetime, n_days: int,
-                 output_writers=None, model_step: int = 0
-                 ) -> Tuple[ModelState, cal.Datetime]:
+                 output_writers=None, model_step: int = 0,
+                 after_day=None) -> Tuple[ModelState, cal.Datetime]:
         """Advance all members ``n_days`` from ``start``, each day one
         replay of the captured day (Model.run_staged); returns (a new state,
         end date).
 
-        ``output_writers``: optional list of ``n_members`` writers with
-        Model.run's signature ``writer(step, date, start, fields)``, one per
-        member (e.g. a NetCDFWriter per memberNNN/ directory): every step's
-        gridded fields of every member, and the initial state's when
-        ``model_step`` is 0. A day's grids come to the host in one copy for
-        all members and steps. The stability guard is checked on each
-        day's extrema, per member, once per chunk of days, as in
-        Model.run_fast.
+        ``output_writers``: optional list of writers with Model.run's
+        signature ``writer(step, date, start, fields)``, one per member
+        this rank holds, in the order of ``self.members`` (e.g. a
+        NetCDFWriter per memberNNN/ directory, NNN the global index):
+        every step's gridded fields of every member, and the initial
+        state's when ``model_step`` is 0. A day's grids come to the host in
+        one copy for all members and steps. The stability guard is checked
+        on each day's extrema, per member, once per chunk of days, as in
+        Model.run_fast (``guard``, reduced over the ranks of a mesh).
+        ``after_day(i)`` runs after day i's replay (and its output).
         """
         model, cfg = self.model, self.model.cfg
         collect = output_writers is not None
         if collect:
-            if len(output_writers) != self.n:
+            if len(output_writers) != self.n_local:
                 raise ValueError(f"{len(output_writers)} writers for "
-                                 f"{self.n} members")
+                                 f"{self.n_local} members")
             if model_step == 0:
                 g0 = _to_host(gridded_fields(cfg, model.mc, estate.prog))
                 for m, w in enumerate(output_writers):
@@ -109,12 +141,52 @@ class Ensemble:
                     w(step, date, start,
                       {k: grids[k][i, m] for k in GRID_FIELDS})
 
+        def day_done(day: int) -> None:
+            if collect:
+                write(day)
+            if after_day is not None:
+                after_day(day)
+
         end = model.run_staged(cd, start, start, n_days, self.noise,
-                               after_day=write if collect else None)
+                               after_day=day_done, guard=self.guard)
         return cd.result(), end
+
+    def guard(self, rows: np.ndarray, first_day: int) -> None:
+        """The stability guard (``diagnostics.bad_days``) on a chunk's rows
+        [days, 4, members, kx] of this rank's members, days counted from
+        ``first_day``: InstabilityError names the first rejected day and
+        its global member. Over a mesh's process group, one all-reduce
+        (MIN) of that (day, member), coded day x n_members + member, makes
+        every rank raise at the same chunk, naming the same member and
+        day, or none."""
+        hits = np.argwhere(bad_days(rows))
+        none = rows.shape[0] * self.n
+        code = none if len(hits) == 0 else \
+            int(hits[0][0]) * self.n + self.members.start + int(hits[0][1])
+        if self.mesh is not None and self.mesh.backend is not None:
+            t = torch.tensor([code], dtype=torch.int64,
+                             device=self.mesh.host_device())
+            dist.all_reduce(t, op=dist.ReduceOp.MIN)
+            code = int(t.item())
+        if code < none:
+            day, member = divmod(code, self.n)
+            mine = ""
+            if member in self.members:
+                r = rows[day, :, member - self.members.start]
+                mine = (f": reke={r[0]}, deke={r[1]}, temp min={r[2]}, "
+                        f"max={r[3]}")
+            raise InstabilityError(
+                f"Model variables out of accepted range at day "
+                f"{first_day + day}, member {member}{mine}")
 
     def member_fields(self, estate: ModelState, member: int
                       ) -> Dict[str, torch.Tensor]:
-        """Member ``member``'s gridded fields (Model.gridded_fields)."""
-        prog = type(estate.prog)(*(x[member] for x in estate.prog))
+        """Global member ``member``'s gridded fields (Model.gridded_fields),
+        on the rank that holds it; another rank raises."""
+        if member not in self.members:
+            raise ValueError(
+                f"member {member} is not held here: this rank holds "
+                f"{self.members.start}..{self.members.stop - 1}")
+        local = member - self.members.start
+        prog = type(estate.prog)(*(x[local] for x in estate.prog))
         return self.model.gridded_fields(prog)

@@ -65,15 +65,28 @@ def guard_extrema(diags: Sequence[Diagnostics]) -> torch.Tensor:
                         tm.amin(dim=0), tm.amax(dim=0)])
 
 
+def bad_days(guard: np.ndarray) -> np.ndarray:
+    """Which rows the guard rejects, from consecutive days' extrema [days,
+    4, ..., kx] (``guard_extrema`` of each day, on the host): bool [days,
+    ...], true where a level is out of ``check_diagnostics``' ranges or
+    not finite (per member of an ensemble)."""
+    reke, deke, tmin, tmax = (guard[:, i] for i in range(4))
+    bad = ((reke > EKE_MAX) | (deke > EKE_MAX) | (tmin < TMEAN_MIN)
+           | (tmax > TMEAN_MAX) | ~np.isfinite(guard).all(axis=1))
+    return bad.any(axis=-1)
+
+
 def check_days(guard: np.ndarray, first_day: int = 0) -> None:
     """The guard on consecutive days' extrema [days, 4, ..., kx]
-    (``guard_extrema`` of each day, on the host), naming the first day
-    out of range, counted from ``first_day``."""
-    for d, g in enumerate(guard):
-        check_diagnostics(Diagnostics(
-            reke=g[0], deke=g[1],
-            tmean=np.where(g[2] < TMEAN_MIN, g[2], g[3])), first_day + d,
-            "day")
+    (``bad_days``), naming the first day out of range, counted from
+    ``first_day``."""
+    hits = np.argwhere(bad_days(guard))
+    if len(hits):
+        d = int(hits[0][0])
+        g = guard[d]
+        raise InstabilityError(
+            f"Model variables out of accepted range at day {first_day + d}: "
+            f"reke={g[0]}, deke={g[1]}, temp min={g[2]}, max={g[3]}")
 
 
 def format_diagnostics(diag: Diagnostics, istep: int) -> str:

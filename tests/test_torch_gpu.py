@@ -549,3 +549,48 @@ def test_debug_nans_run_equals_replayed_run(smoke, bc, precision):
     for step, fields in wa.items():
         for k, v in fields.items():
             np.testing.assert_array_equal(v, wb[step][k], err_msg=f"{step} {k}")
+
+
+# ---------------------------------------------------------------------------
+# the accumulating day (run_multiyear) and the dp axis
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("precision", ["fp64", "fp32"])
+def test_accumulating_day_replay_equals_eager_day(smoke, bc, precision):
+    """Two replayed days of the accumulating variant: the state and every
+    sum equal the eager days' (run_day with its fluxes, summed as the day
+    sums them)."""
+    m = Model(t30(precision=precision), device="cuda", bc_arrays=bc)
+    equal, differ = smoke.accumulate_vs_eager(m, START)
+    assert equal, differ
+
+
+def test_two_ranks_on_one_card_equal_unsharded_blocks(smoke, bc, tmp_path):
+    """tests/torch_mesh_worker.py over two ranks on cuda:0 (Gloo), T21
+    kx=5 fp32, 4 members, a day: the gathered state equals, array for
+    array, unsharded 2-member Ensembles with the ranks' seeds; a member
+    pushed out of range on rank 1 raises on both ranks."""
+    import subprocess
+    env = dict(os.environ, PYTHONPATH=REPO_ROOT)
+    r = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2",
+         os.path.join(REPO_ROOT, "tests", "torch_mesh_worker.py"),
+         str(tmp_path), "--device", "cuda:0", "--precision", "fp32",
+         "--seed", "5"], env=env, capture_output=True, text=True,
+        timeout=600)
+    said = [(tmp_path / f"rank{k}.txt").read_text() for k in (0, 1)]
+    assert r.returncode != 0 and all(
+        x.startswith("Model variables out of accepted range at day 0, "
+                     "member 2") for x in said), said
+    got = np.load(tmp_path / "gathered.npz")
+    m = Model(t30(precision="fp32", sppt_on=True, trunc=21, ix=64, il=32,
+                  kx=5), device="cuda", bc_arrays=bc)
+    for first in (0, 2):
+        ens = Ensemble(m, 2, base_seed=5 + first)
+        estate, _ = ens.run_days(ens.initialize(START), START, 1)
+        for group in ("prog", "surf", "rad"):
+            for f, v in getattr(estate, group)._asdict().items():
+                np.testing.assert_array_equal(
+                    got[f"{group}.{f}"][first:first + 2], v.cpu().numpy(),
+                    err_msg=f"{group}.{f}")

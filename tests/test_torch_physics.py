@@ -27,6 +27,7 @@ from speedy_tpu_torch.models.model import Model
 from speedy_tpu_torch.models.physics import fused
 from speedy_tpu_torch.utils.synthetic_bc import (synthetic_boundaries,
                                                  write_boundary_files)
+from torch_parity import mismatch_report
 
 BOUND = 1e-12
 NAMES = ["utend", "vtend", "ttend", "qtend", "precnv", "precls", "cbmf",
@@ -110,6 +111,7 @@ def outputs(setup):
                      for a in args]
             tout = flat(tphys.grid_physics_core(tm.cfg, tm.pp, sw, *targs))
             res[case, sw] = (jout, tout)
+            res["inputs", case, sw] = targs
     return res
 
 
@@ -129,7 +131,8 @@ def test_physics_chain_matches_jax(outputs, case, compute_sw, name):
     assert len(jout) == len(tout) == (27 if compute_sw else 21)
     i = NAMES.index(name)
     assert tout[i].shape == tuple(jout[i].shape), name
-    assert rel_err(tout[i], jout[i]) <= BOUND, name
+    assert rel_err(tout[i], jout[i]) <= BOUND, mismatch_report(
+        outputs["inputs", case, compute_sw], [name], [tout[i]], [jout[i]])
 
 
 def test_physics_matches_interpreted_pallas_kernel(setup, outputs):
@@ -171,8 +174,28 @@ def test_wrapper_cpu_path_is_plain_chain(setup, outputs):
                                             trad, tpg))
         _, ref = outputs["booted", sw]
         for name, a, b in zip(NAMES, out, ref):
-            assert torch.equal(a, b), name
+            assert torch.equal(a, b), mismatch_report(
+                outputs["inputs", "booted", sw], NAMES, out, ref)
     assert fused.launches == 0 and fused.launches_sw == 0
+
+
+@pytest.mark.parametrize("threads", [1, 2, 4])
+def test_chain_bit_equal_across_thread_counts(setup, outputs, threads):
+    """The booted SW chain (T30 fp64) with 1, 2 and 4 intra-op threads is
+    torch.equal to the run with the default count: a result that moved
+    with the OpenMP team's size would show here."""
+    tm = setup[5]
+    default = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        out = flat(tphys.grid_physics_core(
+            tm.cfg, tm.pp, True, *outputs["inputs", "booted", True]))
+    finally:
+        torch.set_num_threads(default)
+    _, ref = outputs["booted", True]
+    for name, a, b in zip(NAMES, out, ref):
+        assert torch.equal(a, b), mismatch_report(
+            outputs["inputs", "booted", True], NAMES, out, ref)
 
 
 def test_argument_block_layout(setup):

@@ -2,6 +2,9 @@
 (tests/test_torch_lw_order.py, test_torch_sst.py, test_torch_options.py):
 the bounds, the error measures, and boot + n steps of a JAX model and of
 the port's model. Bounds are max |port - jax| / max |jax| per field."""
+import ctypes
+import hashlib
+
 import numpy as np
 import jax
 import torch
@@ -96,3 +99,51 @@ def port_steps(tm, start, n=6):
     for i in range(n):
         ts, _ = tm.one_step(ts, daily, i % tm.cfg.nstrad == 0)
     return tboot, ts
+
+
+def openmp_state():
+    """The OpenMP runtime's settings as this process loaded it: the
+    thread count torch reports, and omp_get_max_threads, omp_get_dynamic
+    (whether the runtime may shrink a team) and omp_get_num_procs from the
+    libgomp/libiomp mapped into the process (Linux), or why not."""
+    out = f"torch.get_num_threads()={torch.get_num_threads()}"
+    try:
+        with open("/proc/self/maps") as f:
+            libs = sorted({line.split()[-1] for line in f
+                           if "omp" in line.rsplit("/", 1)[-1]})
+        for path in libs:
+            lib = ctypes.CDLL(path)
+            out += (f"; {path.rsplit('/', 1)[-1]}: max_threads="
+                    f"{lib.omp_get_max_threads()} dynamic="
+                    f"{lib.omp_get_dynamic()} num_procs="
+                    f"{lib.omp_get_num_procs()}")
+    except (OSError, AttributeError) as e:
+        out += f"; OpenMP runtime not read: {e}"
+    return out
+
+
+def describe(x):
+    """A tensor's data pointer, shape, strides, dtype and checksums (a
+    digest of its bytes and its sum)."""
+    if x is None:
+        return "None"
+    t = x.detach().cpu().contiguous()
+    digest = hashlib.sha1(t.numpy().tobytes()).hexdigest()[:16]
+    return (f"ptr={x.data_ptr():#x} shape={tuple(x.shape)} "
+            f"stride={tuple(x.stride())} {x.dtype} sha1={digest} "
+            f"sum={float(t.double().sum())!r}")
+
+
+def mismatch_report(inputs, names, a, b):
+    """What to dump when two results that should agree do not: the
+    OpenMP state, every input (``describe``) and every output pair that
+    differs, with its largest difference."""
+    lines = [openmp_state()]
+    lines += [f"in[{i}] {describe(x)}" for i, x in enumerate(inputs)]
+    for n, x, y in zip(names, a, b):
+        x, y = torch.as_tensor(np.asarray(x)), torch.as_tensor(np.asarray(y))
+        if not torch.equal(x, y):
+            lines.append(f"{n}: max |a - b| = "
+                         f"{float((x - y).abs().max())!r}\n  a {describe(x)}"
+                         f"\n  b {describe(y)}")
+    return "\n".join(lines)
