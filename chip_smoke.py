@@ -125,7 +125,32 @@ Phases (each prints one line or more; any failure exits non-zero):
     months, one host copy a month, the K1 launches, the wall and the
     sim-days/min;
 17. stability_diag at T85 over 9 days in chunks of 3: status clean, the
-    npz arrays with the JAX script's shapes, the K1 launches.
+    npz arrays with the JAX script's shapes, the K1 launches;
+18. the sp axis (parallel/mesh.py: latitude bands over ranks, the
+    spectral state replicated, each Legendre analysis a band's partial
+    sum plus one all-reduce over the dp row's sp group): (a) two ranks
+    sharing the card over Gloo (tests/torch_mesh_worker.py, dp=1 x
+    sp=2, each day eager, as a Gloo collective cannot be captured): a
+    T30 fp64 SPPT day of 2 members, the gathered state within 1e-12 per
+    field and member of an unsharded in-process CUDA Ensemble's, the
+    ranks' spectral leaves equal; boot + one step at T85 and at T170
+    (fp64) within 1e-12 of the unsharded step; the K1 launches and the
+    eager day's member-days/min per rank, for the record; (b) one rank
+    under NCCL in this process, an sp group of one rank (the band holds
+    every row and each analysis makes its all-reduce): the T30 day
+    captured with its all-reduces inside the graph, fp64 SPPT, its
+    replay torch.equal to the band's eager day and to the unsharded
+    run's replayed and eager days; the all-reduces and K1 launches a
+    day, and the NCCL and K1 kernels in a profiler trace of one
+    replayed day; fp32, 8 members, SPPT on, 30 days, member-days/min of
+    the band's replayed days against the unsharded ensemble's, in turns;
+    (c) K1 at band shapes (T30 rows 24 and 12, T170 rows 64; the
+    northernmost band of the perturbed booted inputs) against its plain
+    chain on the card, fp64 and fp32, SW and non-SW, bounds 1e-12 /
+    1e-4, with the kernel's graph-replay time; (d) python -m
+    speedy_tpu_torch.bench_scaling --mode sp --counts 1,2 --reps 1
+    (T30), its JSON lines: count 2 is two Gloo ranks time-slicing one
+    card and measures nothing of NVLink.
 The last three lines are the kernel table, the card and the result line.
 Runs on the stand-in boundary set (speedy_tpu_torch/utils/synthetic_bc.py).
 """
@@ -1100,6 +1125,10 @@ DP_MEMBERS, DP_DAYS = 8, 2          # [15] (a)
 DP_TIMED_DAYS = 30                  # [15] (a), (c): member-days/min
 MULTIYEAR_YEARS = 2                 # [16]
 DIAG_PRESET, DIAG_DAYS, DIAG_CHUNK = "t85", 9, 3   # [17]
+SP_MEMBERS = 2                      # [18] (a): the T30 day's members
+SP_STEP_PRESETS = ("t85", "t170")   # [18] (a): boot + one step
+SP_NCCL_MEMBERS, SP_NCCL_DAYS = 8, 30   # [18] (b): the timed fp32 days
+SP_K1_BANDS = (("t30", (24, 12)), ("t170", (64,)))   # [18] (c): rows
 
 
 def torchrun(label, nproc, *args, module=True):
@@ -1463,6 +1492,274 @@ def diag_phase(card):
     return ok
 
 
+def band_inputs(ins, rows):
+    """K1's inputs (fused.kernel_inputs order) cut to the latitude rows
+    ``rows``: the [il] fields sliced, ablco2 as it is, the others on
+    their latitude axis, contiguous."""
+    from speedy_tpu_torch.models.physics import fused
+    return [x if i == 22 else x[rows].contiguous()
+            if i in fused.LAT_INPUTS
+            else x[..., rows, :].contiguous() for i, x in enumerate(ins)]
+
+
+def k1_band_phase(bc):
+    """[18] (c) K1 at band shapes against its plain chain on the card."""
+    from speedy_tpu_torch.config import from_preset
+    from speedy_tpu_torch.models.model import Model
+    from speedy_tpu_torch.models.physics import fused
+    ok = True
+    for preset, band_rows in SP_K1_BANDS:
+        for prec in ("fp64", "fp32"):
+            m = Model(from_preset(preset, precision=prec), device="cuda",
+                      bc_arrays=bc)
+            cfg = m.cfg
+            bound = bench_physics.error_bound(cfg.rdtype)
+            for sw in (True, False):
+                booted_ins, block = bench_physics.physics_case(m, sw)
+                full = bench_physics.perturb(booted_ins)
+                for n in band_rows:
+                    rows = slice(cfg.il - n, cfg.il)
+                    ins = band_inputs(full, rows)
+                    kout = fused.launch_kernel(cfg, sw, ins, block)
+                    pout = fused.plain_outputs(cfg, m.pp, sw, ins)
+                    torch.cuda.synchronize()
+                    errs = field_errors(kout, pout)
+                    worst = max(e[0] for e in errs)
+                    good = worst <= bound and all(
+                        bool(torch.isfinite(k).all()) for k in kout) \
+                        and tuple(kout[4].shape) == (n, cfg.ix)
+                    ok &= good
+                    us = time_graph_ms(lambda: fused.launch_kernel(
+                        cfg, sw, ins, block), N_TIMED) * 1e3
+                    print(f"[18] (c) K1 {preset} {prec} "
+                          f"{'sw' if sw else 'nosw'} rows {rows.start}.."
+                          f"{rows.stop - 1} ({n} x {cfg.ix} columns): worst "
+                          f"{worst:.3e} (bound {bound:.0e}), max abs "
+                          f"{max(e[1] for e in errs):.3e}, {us:.3f} us/call "
+                          f"(graph) {'ok' if good else 'FAILED'}")
+            del m
+    return ok
+
+
+def sp_gloo_phase(bc, d, card):
+    """[18] (a) dp=1 x sp=2 over two ranks sharing cuda:0 (Gloo)."""
+    from speedy_tpu_torch.config import from_preset, t30
+    from speedy_tpu_torch.models.model import Model, one_step
+    from speedy_tpu_torch.parallel.ensemble import Ensemble
+    from speedy_tpu_torch.utils import calendar as cal
+    start = cal.Datetime(1982, 1, 1)
+    worker = os.path.join("tests", "torch_mesh_worker.py")
+    ok = True
+
+    def compare(out, estate, members):
+        got = np.load(os.path.join(out, "gathered.npz"))
+        worst, where = 0.0, None
+        for group in ("prog", "surf", "rad"):
+            for f, v in getattr(estate, group)._asdict().items():
+                v = v.cpu().numpy()
+                for m in range(members):
+                    err = float(np.abs(got[f"{group}.{f}"][m] - v[m]).max()
+                                / max(np.abs(v[m]).max(), 1e-300))
+                    if not err <= worst:
+                        worst, where = err, f"{group}.{f} member {m}"
+        specs = [np.load(os.path.join(out, f"spec{k}.npz")) for k in (0, 1)]
+        same = all(np.array_equal(specs[0][f], specs[1][f])
+                   for f in specs[0].files)
+        runs = [json.load(open(os.path.join(out, f"run{k}.json")))
+                for k in (0, 1)]
+        return worst, where, same, runs
+
+    os.makedirs(d("day"))
+    r = torchrun("[18] (a)", 2, worker, d("day"), "--device", "cuda:0",
+                 "--grid", "t30", "--precision", "fp64", "--sp", "2",
+                 "--members", str(SP_MEMBERS), "--seed", "0", "--no-trip",
+                 module=False)
+    model = Model(t30(precision="fp64", sppt_on=True), device="cuda",
+                  bc_arrays=bc)
+    e = Ensemble(model, SP_MEMBERS)
+    estate, _ = e.run_days(e.initialize(start), start, 1)
+    try:
+        worst, where, same, runs = compare(d("day"), estate, SP_MEMBERS)
+    except OSError as exc:
+        worst, where, same, runs = float("inf"), str(exc), False, []
+    good = r.returncode == 0 and worst <= 1e-12 and same \
+        and len(runs) == 2 and not any(x["captured"] for x in runs)
+    ok &= good
+    nsteps = model.cfg.nsteps
+    print(f"[18] (a) fp64 T30 SPPT {SP_MEMBERS} members 1 day, dp=1 x sp=2 "
+          f"over 2 ranks on cuda:0 (Gloo), against the unsharded "
+          f"{SP_MEMBERS}-member Ensemble in this process: worst {worst:.3e} "
+          f"field-normalised (bound 1e-12) at {where}; spectral leaves "
+          f"equal across the ranks {same}; day captured "
+          f"{[x['captured'] for x in runs]} (Gloo: eager) "
+          f"{'ok' if good else 'FAILED'}")
+    for k, x in enumerate(runs):
+        print(f"[18] (a) rank {k}: K1 launches {x['launches']} (sw "
+              f"{x['launches_sw']}; 2 in the boot, {nsteps} a day), "
+              f"all-reduces {x['allreduces']} ({2 * nsteps + 2} a day), "
+              f"the eager day {x['seconds']:.3f} s: "
+              f"{SP_MEMBERS * 60.0 / x['seconds']:.1f} member-days/min on "
+              f"{card} (for the record: two processes time-slice the card)")
+    if not good:
+        print(r.stdout[-3000:] + r.stderr[-3000:])
+    del model, e, estate
+    # the presets' steps check values only: their launches run together
+    from concurrent.futures import ThreadPoolExecutor
+    for preset in SP_STEP_PRESETS:
+        os.makedirs(d(preset))
+    with ThreadPoolExecutor(len(SP_STEP_PRESETS)) as pool:
+        launched = {preset: pool.submit(
+            torchrun, "[18] (a)", 2, worker, d(preset), "--device", "cuda:0",
+            "--grid", preset, "--precision", "fp64", "--sp", "2",
+            "--members", "1", "--no-sppt", "--steps", "1", "--no-trip",
+            module=False) for preset in SP_STEP_PRESETS}
+    for preset in SP_STEP_PRESETS:
+        out, r = d(preset), launched[preset].result()
+        model = Model(from_preset(preset, precision="fp64"), device="cuda",
+                      bc_arrays=bc)
+        e = Ensemble(model, 1, base_seed=5)
+        estate = e.initialize(start)
+        daily = model.daily_forcing(estate, start, start)
+        estate, _ = one_step(model.cfg, model.pp, model.lsp, model.mc,
+                             estate, daily, compute_sw=True)
+        try:
+            worst, where, same, runs = compare(out, estate, 1)
+        except OSError as exc:
+            worst, where, same, runs = float("inf"), str(exc), False, []
+        good = r.returncode == 0 and worst <= 1e-12 and same
+        ok &= good
+        print(f"[18] (a) fp64 {preset} boot + one step, dp=1 x sp=2 on "
+              f"cuda:0 (Gloo) against the unsharded step: worst {worst:.3e} "
+              f"(bound 1e-12) at {where}; spectral leaves equal {same}; K1 "
+              f"launches per rank {[x['launches'] for x in runs]} "
+              f"{'ok' if good else 'FAILED'}")
+        if not good:
+            print(r.stdout[-3000:] + r.stderr[-3000:])
+        del model, e, estate
+    return ok
+
+
+def sp_nccl_phase(bc, card):
+    """[18] (b) one rank under NCCL with an sp group of one rank, in this
+    process: the band's day captured with its all-reduces."""
+    import dataclasses
+    import socket
+    import torch.distributed as dist
+    from speedy_tpu_torch.config import t30
+    from speedy_tpu_torch.models.captured import leaves
+    from speedy_tpu_torch.models.model import Model
+    from speedy_tpu_torch.models.physics import fused
+    from speedy_tpu_torch.ops import spectral
+    from speedy_tpu_torch.parallel.ensemble import Ensemble
+    from speedy_tpu_torch.parallel.mesh import make_mesh, new_group
+    from speedy_tpu_torch.utils import calendar as cal
+    start = cal.Datetime(1982, 1, 1)
+    with socket.socket() as s_:
+        s_.bind(("localhost", 0))
+        port = s_.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    ok = True
+    try:
+        mesh = make_mesh(1, 1, device="cuda:0")
+        mesh = dataclasses.replace(mesh, sp_group=new_group([0],
+                                                            mesh.device))
+        model = Model(t30(precision="fp64", sppt_on=True),
+                      device=mesh.device, bc_arrays=bc)
+        band = model.for_band(mesh)
+        state, noise, _ = booted(model, start)
+        equal = lambda a, b: all(torch.equal(x, y) for x, y in
+                                 zip(leaves(a), leaves(b), strict=True))
+        cd, capture_s, _ = capture_day(band, state, start)
+        spectral.allreduces = 0
+        fused.reset_launches()
+        with sync_error():
+            cd.advance(0, noise)
+        torch.cuda.synchronize()
+        per_day = (spectral.allreduces, fused.launches)
+        replayed = cd.result()
+        eager = side_eager_day(band, state, start, noise)[0]
+        plain_cd, _, _ = capture_day(model, state, start)
+        plain_cd.advance(0, noise)
+        plain_replayed = plain_cd.result()
+        plain_eager = side_eager_day(model, state, start, noise)[0]
+        _, kernels, _ = trace(lambda: cd.advance(0, noise))
+        names = [n for n, _ in kernels]
+        n_nccl = sum(1 for n in names if "nccl" in n.lower())
+        n_k1 = sum(1 for n in names if "column_physics" in n)
+        eq = (equal(replayed, eager), equal(replayed, plain_replayed),
+              equal(eager, plain_eager))
+        nsteps = model.cfg.nsteps
+        good = cd.captured and cd.graph is not None and all(eq) \
+            and per_day == (2 * nsteps + 2, nsteps) \
+            and cd.allreduces == 2 * nsteps + 2 and n_k1 == nsteps
+        ok &= good
+        print(f"[18] (b) fp64 T30 SPPT, one NCCL rank, an sp group of one "
+              f"rank (rows 0..{model.cfg.il - 1}): the day captured "
+              f"{cd.captured} ({capture_s:.3f} s, warm-up day included) with "
+              f"{cd.allreduces} all-reduces in the graph; a replayed day "
+              f"counts {per_day[0]} all-reduces and {per_day[1]} K1 "
+              f"launches (expected {2 * nsteps + 2} and {nsteps}); replay "
+              f"== the band's eager day {eq[0]}, == the unsharded replayed "
+              f"day {eq[1]}; band eager == unsharded eager {eq[2]}; a "
+              f"profiler trace of one replayed day: {n_nccl} NCCL kernels, "
+              f"{n_k1} K1 kernels, {len(names)} kernels "
+              f"{'ok' if good else 'FAILED'}")
+        del model, band, cd, plain_cd
+        # fp32, 8 members, SPPT on: member-days/min, band and unsharded
+        model = Model(t30(sppt_on=True), device=mesh.device, bc_arrays=bc)
+        ensembles = {"band (NCCL)": Ensemble(model, SP_NCCL_MEMBERS,
+                                             mesh=mesh),
+                     "unsharded": Ensemble(model, SP_NCCL_MEMBERS)}
+        states = {k: e.initialize(start) for k, e in ensembles.items()}
+        for k, e in ensembles.items():      # warm-up day and capture
+            e.run_days(states[k], start, 1)
+        rates = {k: [] for k in ensembles}
+        launches = {}
+        for k in list(ensembles) + list(ensembles)[::-1]:
+            fused.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            final, _ = ensembles[k].run_days(states[k], start,
+                                             SP_NCCL_DAYS)
+            torch.cuda.synchronize()
+            rates[k].append(SP_NCCL_MEMBERS * SP_NCCL_DAYS * 60.0
+                            / (time.perf_counter() - t0))
+            launches[k] = fused.launches
+            finite = all(bool(torch.isfinite(x).all()) for x in final.prog)
+            ok &= finite and fused.launches == SP_NCCL_DAYS * nsteps
+        print(f"[18] (b) fp32 T30 SPPT {SP_NCCL_MEMBERS} members "
+              f"{SP_NCCL_DAYS} replayed days (after a warm-up day and the "
+              f"capture), in turns: member-days/min " + "; ".join(
+                  f"{k} " + " / ".join(f"{v:.1f}" for v in rs)
+                  for k, rs in rates.items())
+              + f"; K1 launches {launches} (expected "
+              f"{SP_NCCL_DAYS * nsteps} each) on {card}")
+    finally:
+        dist.destroy_process_group()
+    return ok
+
+
+def sp_phase(bc, card):
+    """[18] The sp axis on one card: (c), (a), (b), (d)."""
+    t_phase = time.perf_counter()
+    ok = k1_band_phase(bc)
+    with tempfile.TemporaryDirectory() as tmp:
+        ok &= sp_gloo_phase(bc, lambda *p: os.path.join(tmp, *p), card)
+    ok &= sp_nccl_phase(bc, card)
+    r = program("[18] (d)", "speedy_tpu_torch.bench_scaling", "--mode",
+                "sp", "--counts", "1,2", "--reps", "1")
+    lines = json_lines(r.stdout)
+    ok &= r.returncode == 0 and len(lines) == 2
+    for rec in lines:
+        print("[18] (d) " + json.dumps(rec))
+    print("[18] (d) count 2 is two ranks over Gloo time-slicing one card "
+          "(eager days, the all-reduces staged through host copies): it "
+          f"measures nothing of NVLink; on {card}")
+    print(f"[18] phase time {time.perf_counter() - t_phase:.1f} s")
+    return ok
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1626,6 +1923,9 @@ def main() -> int:
         return 1
     if not diag_phase(card):
         print("[17] FAILED")
+        return 1
+    if not sp_phase(bc, card):
+        print("[18] FAILED")
         return 1
 
     kernels = []

@@ -28,6 +28,16 @@ place, or capture again: the SST-anomaly window (``mc.clim.sstan3``),
 which the run drivers shift at month starts, is copied into in place on
 the replays' stream.
 
+A band view's day (``Model.for_band``, the 'sp' axis of parallel/mesh.py)
+holds its analyses' all-reduces over the band ranks' group. Under NCCL
+they are captured with the rest of the day (NCCL sets up the group's
+communicator when the mesh is made: it cannot inside a capture). A Gloo
+collective cannot be captured, so where the group's backend is Gloo (ranks
+that share a GPU) the staged day runs eagerly on CUDA too, its
+all-reduces staged through host copies, marked as syncs. That choice is
+made here, from the model's ``collectives`` (the mesh's backend), once
+(``CapturedDay.captured``).
+
 The first day of a ``CapturedDay`` on CUDA warms up on a side stream on
 the staged copy of the state (building and loading the kernel libraries,
 K1's shared-memory opt-in, cuBLAS's handles), then captures. Capture or
@@ -48,6 +58,7 @@ import torch
 
 from . import coupling
 from .physics import fused
+from ..ops import spectral
 from .physics.sppt import draw_day
 from ..utils.diagnostics import Diagnostics, guard_extrema
 
@@ -158,13 +169,15 @@ class CapturedDay:
         self.grids, self.accumulate = grids, accumulate
         self.host_copies = 0
         dev = self.device = template.prog.vor.device
+        # a graph on CUDA unless the day's collectives are Gloo's
+        self.captured = dev.type == "cuda" and model.collectives != "gloo"
         dtype = cfg.rdtype
         zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=dev)
         self.state = _rebuild(template, [zeros(*x.shape)
                                          for x in leaves(template)], None)
         lead = tuple(template.prog.vor.shape[:-5])   # the member axis
-        self.date = zeros(coupling.date_row_size(cfg))
-        self.ds = coupling.date_scalars_view(cfg, self.date)
+        self.date = zeros(coupling.date_row_size(cfg, model.rows))
+        self.ds = coupling.date_scalars_view(cfg, self.date, model.rows)
         self.days = zeros(0, self.date.numel())
         self.eta = zeros(cfg.nsteps, *template.sppt.spec.shape) \
             if cfg.sppt_on else None
@@ -177,8 +190,8 @@ class CapturedDay:
             n_diag = cfg.nsteps // diag_every
             self.out_shapes = {f: (n_diag,) + lead + (cfg.kx,)
                                for f in Diagnostics._fields}
+        grid = tuple(template.surf.stl_lm.shape[-2:])   # [il, ix] or a band
         if grids:
-            grid = (cfg.il, cfg.ix)
             self.out_shapes.update(
                 {k: (cfg.nsteps,) + lead + (cfg.kx,) + grid
                  for k in ("u", "v", "t", "q", "phi")},
@@ -189,7 +202,6 @@ class CapturedDay:
         # the accumulating variant's sums, views of one buffer
         self.acc_shapes = {}
         if accumulate:
-            grid = (cfg.il, cfg.ix)
             self.acc_shapes = {k: lead + (cfg.kx,) + grid for k in ACC_GRIDS}
             self.acc_shapes.update({k: lead + grid for k in ACC_FLUXES})
         self.acc_flat = zeros(sum(int(np.prod(s))
@@ -200,6 +212,7 @@ class CapturedDay:
         self.graph = None
         # the graph's K1 launches by counter (fused.COUNTERS)
         self.k1_counts = dict.fromkeys(fused.COUNTERS, 0)
+        self.allreduces = 0   # the graph's (spectral.sum_over), as K1's
         self._source = None
 
     # ------------------------------------------------------------------
@@ -236,9 +249,10 @@ class CapturedDay:
         """On CUDA, warm up one day (the first staged date row) on a side
         stream on the staged state, stage the loaded state (and the
         accumulators as they were) again, and capture the day; a no-op
-        once captured or on the CPU. Needs ``load`` and ``set_days``
-        first; ``advance`` calls it."""
-        if self.graph is not None or self.device.type != "cuda":
+        once captured, on the CPU and for a day that runs eagerly
+        (``captured`` false). Needs ``load`` and ``set_days`` first;
+        ``advance`` calls it."""
+        if self.graph is not None or not self.captured:
             return
         if self._source is None or self.days.shape[0] == 0:
             raise RuntimeError("load a state and set its days before the "
@@ -254,6 +268,7 @@ class CapturedDay:
             copy_state(self.state, self._source)
             self.acc_flat.copy_(acc)
             before = {n: getattr(fused, n) for n in fused.COUNTERS}
+            reduces = spectral.allreduces
             graph = torch.cuda.CUDAGraph()
             # a collection inside the capture could destroy another graph
             # (of a dropped object in a reference cycle), which a capturing
@@ -271,6 +286,8 @@ class CapturedDay:
                               for n, v in before.items()}
             for n, v in before.items():
                 setattr(fused, n, v)
+            self.allreduces = spectral.allreduces - reduces
+            spectral.allreduces = reduces
         self.graph = graph
         self._source = None
 
@@ -289,7 +306,7 @@ class CapturedDay:
         copy_state(self.state, state)
         if self.cfg.sppt_on:
             self.generator = state.sppt.generator
-        if self.graph is None:
+        if self.graph is None and self.captured:
             self._source = state
 
     def set_days(self, rows: np.ndarray) -> None:
@@ -323,6 +340,7 @@ class CapturedDay:
             self.graph.replay()
             for n, v in self.k1_counts.items():
                 setattr(fused, n, getattr(fused, n) + v)
+            spectral.allreduces += self.allreduces
         else:
             self._body()
         self.rows[d].copy_(self.guard)

@@ -233,27 +233,28 @@ def copy_from_host(dst: torch.Tensor, src) -> None:
 
 def initial_anomaly_window(cfg: ModelConfig, bmask_s: np.ndarray,
                            isst0: int, sstan3: torch.Tensor, search=None,
-                           arrays=None) -> None:
-    """The 3-month window around the start month into ``sstan3``, in place
-    (sea_model.f90:172-182): isst0 = (start_year - issty0) * 12 +
-    start_month."""
+                           arrays=None, rows: slice = slice(None)) -> None:
+    """The 3-month window around the start month into ``sstan3`` (the
+    latitude rows ``rows`` of a band), in place (sea_model.f90:172-182):
+    isst0 = (start_year - issty0) * 12 + start_month."""
     window = np.zeros((3,) + bmask_s.shape)
     for m in range(1, 4):
         if (isst0 <= 1 and m != 2) or isst0 > 1:
             window[m - 1] = _read_anomaly_month(cfg, bmask_s, isst0 - 2 + m,
                                                 search, arrays)
-    copy_from_host(sstan3, window)
+    copy_from_host(sstan3, window[:, rows])
 
 
 def advance_anomaly_window(cfg: ModelConfig, bmask_s: np.ndarray,
                            sstan3: torch.Tensor, next_month: int,
-                           search=None, arrays=None) -> None:
+                           search=None, arrays=None,
+                           rows: slice = slice(None)) -> None:
     """Month-start shift of the window (obs_ssta, sea_model.f90:366-384):
-    ``sstan3`` drops its first month and takes month ``next_month`` of the
-    file last, in place."""
+    ``sstan3`` (the rows ``rows`` of a band) drops its first month and
+    takes month ``next_month`` of the file last, in place."""
     new = torch.empty_like(sstan3[0])
     copy_from_host(new, _read_anomaly_month(cfg, bmask_s, next_month,
-                                             search, arrays))
+                                             search, arrays)[rows])
     sstan3.copy_(torch.cat([sstan3[1:], new[None]]))
 
 
@@ -282,15 +283,17 @@ class DateScalars(NamedTuple):
 def date_scalars_np(cfg: ModelConfig, geom_np: dict, imont1: int,
                     tmonth: float, tyear: float, year: int = 0,
                     imont1_next: Optional[int] = None,
-                    tmonth_next: Optional[float] = None) -> DateScalars:
+                    tmonth_next: Optional[float] = None,
+                    rows: slice = slice(None)) -> DateScalars:
     """Date-derived inputs of the daily update as host arrays in the
-    model's type. ``imont1_next`` / ``tmonth_next`` are the season
-    variables of the next calendar day, used for the day's final coupling
-    step; they default to this day's."""
+    model's type, the [il, 1] fields at the latitude rows ``rows`` (a
+    band's). ``imont1_next`` / ``tmonth_next`` are the season variables
+    of the next calendar day, used for the day's final coupling step;
+    they default to this day's."""
     t = np.float64 if cfg.precision == "fp64" else np.float32
     zon = zonal_average_fields(geom_np["sia"], geom_np["coa"], tyear)
     arr = lambda a: np.array(a, dtype=t)
-    col = lambda a: arr(a)[:, None]
+    col = lambda a: arr(a)[rows, None]
     ablco2 = ABLCO2_REF
     if cfg.increase_co2:
         ablco2 = ABLCO2_REF * np.exp(DEL_CO2 * (year + tyear - IYEAR_REF))
@@ -312,10 +315,11 @@ def make_date_scalars(cfg: ModelConfig, geom_np: dict, imont1: int,
                       tmonth: float, tyear: float, device,
                       year: int = 0,
                       imont1_next: Optional[int] = None,
-                      tmonth_next: Optional[float] = None) -> DateScalars:
+                      tmonth_next: Optional[float] = None,
+                      rows: slice = slice(None)) -> DateScalars:
     """``date_scalars_np`` on ``device``."""
     ds = date_scalars_np(cfg, geom_np, imont1, tmonth, tyear, year,
-                         imont1_next, tmonth_next)
+                         imont1_next, tmonth_next, rows)
     return DateScalars(*(torch.as_tensor(a, device=device) for a in ds))
 
 
@@ -326,10 +330,12 @@ def make_date_scalars(cfg: ModelConfig, geom_np: dict, imont1: int,
 DATE_ALIGN = 64
 
 
-def _date_layout(cfg: ModelConfig):
-    """(offset, shape) of each DateScalars field in a packed row, and the
-    row's length F."""
-    shapes = ([(12,), (12,), (3,)] + [(cfg.il, 1)] * 5
+def _date_layout(cfg: ModelConfig, rows: slice):
+    """(offset, shape) of each DateScalars field in a packed row whose
+    [il, 1] fields hold the latitude rows ``rows``, and the row's length
+    F."""
+    n_rows = len(range(cfg.il)[rows])
+    shapes = ([(12,), (12,), (3,)] + [(n_rows, 1)] * 5
               + [(), (12,), (12,), (3,)])
     layout, off = [], 0
     for s in shapes:
@@ -338,16 +344,19 @@ def _date_layout(cfg: ModelConfig):
     return layout, off
 
 
-def date_row_size(cfg: ModelConfig) -> int:
-    """F, the length of one day's packed DateScalars."""
-    return _date_layout(cfg)[1]
+def date_row_size(cfg: ModelConfig, rows: slice = slice(None)) -> int:
+    """F, the length of one day's packed DateScalars (of a band's
+    latitude rows ``rows``)."""
+    return _date_layout(cfg, rows)[1]
 
 
-def pack_date_scalars(cfg: ModelConfig, days) -> np.ndarray:
-    """Host DateScalars of several days as one [days, F] array, a row a
-    day, each field at its aligned offset (``date_scalars_view`` reads a
-    row back)."""
-    layout, size = _date_layout(cfg)
+def pack_date_scalars(cfg: ModelConfig, days,
+                      rows: slice = slice(None)) -> np.ndarray:
+    """Host DateScalars of several days (``date_scalars_np`` of the
+    latitude rows ``rows``) as one [days, F] array, a row a day, each
+    field at its aligned offset (``date_scalars_view`` reads a row
+    back)."""
+    layout, size = _date_layout(cfg, rows)
     out = np.zeros((len(days), size),
                    np.float64 if cfg.precision == "fp64" else np.float32)
     for row, ds in zip(out, days):
@@ -356,10 +365,11 @@ def pack_date_scalars(cfg: ModelConfig, days) -> np.ndarray:
     return out
 
 
-def date_scalars_view(cfg: ModelConfig, flat: torch.Tensor) -> DateScalars:
+def date_scalars_view(cfg: ModelConfig, flat: torch.Tensor,
+                      rows: slice = slice(None)) -> DateScalars:
     """DateScalars as views of one [F] row laid out as
-    ``pack_date_scalars`` lays it out."""
-    layout, size = _date_layout(cfg)
+    ``pack_date_scalars`` lays it out for the latitude rows ``rows``."""
+    layout, size = _date_layout(cfg, rows)
     if flat.numel() != size:
         raise ValueError(f"a date row of {flat.numel()} values, expected "
                          f"{size}")

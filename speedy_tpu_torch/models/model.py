@@ -19,9 +19,17 @@ shifts it before the first day of each later month, ``run`` shifts it
 before a month's first day once past step 0, and ``Ensemble.run_days``
 never shifts it (the JAX package's quirk). Each shift copies into the
 window in place, on the stream the days run on.
+
+A model's band view (``Model.for_band``, the 'sp' axis of
+parallel/mesh.py) runs the same step on one latitude band of the grid:
+its grid-space constants hold the band's rows of the full model's, its
+spectral tables sum each analysis over the band ranks' group, and every
+grid shape of the step follows from its tensors.
 """
 from __future__ import annotations
 
+import copy
+import dataclasses
 import os
 from typing import Dict, NamedTuple, Optional, Tuple
 
@@ -30,7 +38,7 @@ import torch
 
 from ..config import ModelConfig, check_supported
 from ..constants import GRAV, P0
-from ..geometry import build_geometry, build_geometry_np
+from ..geometry import Geometry, build_geometry, build_geometry_np
 from ..ops import spectral as sp
 from ..utils import calendar as cal
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
@@ -255,7 +263,10 @@ class Model:
     ``device`` defaults to ``cuda`` and never falls back to the CPU.
     Boundary fields come from ``bc_arrays`` (``{file: {var: array}}``, see
     utils/synthetic_bc.py) when given, else from the files on
-    ``bc_search``.
+    ``bc_search``. ``rows`` are the latitude rows the model's grid holds
+    (all of them, but for a band view, ``for_band``), ``sp_group`` the
+    process group its analyses sum over (None: no collective) and
+    ``collectives`` that group's backend.
     """
 
     def __init__(self, cfg: ModelConfig, device=None, bc_search=None,
@@ -297,6 +308,53 @@ class Model:
             ic_2dt=implicit(2 * cfg.delt), clim=clim)
         self._captured: Dict[tuple, CapturedDay] = {}
         self.graph_pool = None    # shared by the model's captured days
+        self.rows = slice(0, cfg.il)
+        self.sp_group = self.collectives = None
+
+    def for_band(self, mesh) -> "Model":
+        """This model's view of the latitude band that ``mesh``'s rank
+        holds (``mesh.rows``, parallel/mesh.py), on the model's device:
+        the grid-space constants (the spectral tables' grid side, the
+        geometry's latitude fields, the land-sea, climatology and physics
+        fields) built at full size on the host, as this model builds
+        them, and their band's rows copied to the device; the spectral
+        constants and the boundaries as this model's. Its analyses sum
+        over ``mesh.sp_group``; its days are captured on CUDA unless that
+        group's backend is Gloo (models/captured.py). Returns the model
+        itself where the band holds every row and there is no group (sp
+        = 1, or sp does not divide il)."""
+        cfg, dev = self.cfg, self.device
+        rows = mesh.rows(cfg.il)
+        group = mesh.sp_group if cfg.il % mesh.sp == 0 else None
+        if group is None:
+            return self
+        host = Model(cfg, "cpu", self._anomaly_source["search"],
+                     self._anomaly_source["arrays"])
+        grid = lambda x: x[..., rows, :].contiguous().to(dev)  # [.., il, ix]
+        lat = lambda x: x[rows].contiguous().to(dev)           # [il]
+        to = lambda x: x.to(dev)
+        band = copy.copy(self)
+        band.rows, band.sp_group = rows, group
+        band.collectives = mesh.backend
+        band._captured, band.graph_pool = {}, None
+        geom = host.mc.dyn.geom
+        band.mc = ModelConsts(
+            dyn=self.mc.dyn._replace(
+                sc=sp.band_spectral(host.mc.dyn.sc, rows, group, dev),
+                geom=Geometry(*[lat(x) if x.shape == (cfg.il,) else to(x)
+                                for x in geom])),
+            dc=self.mc.dc, ic_half=self.mc.ic_half, ic_full=self.mc.ic_full,
+            ic_2dt=self.mc.ic_2dt,
+            clim=coupling.Climatology(*map(grid, host.mc.clim)))
+        band.lsp = dataclasses.replace(host.lsp, **{
+            f.name: grid(getattr(host.lsp, f.name))
+            for f in dataclasses.fields(host.lsp)
+            if isinstance(getattr(host.lsp, f.name), torch.Tensor)})
+        band.pp = dataclasses.replace(
+            self.pp, forog=grid(host.pp.forog), coa=lat(host.pp.coa),
+            fmask_l=grid(host.pp.fmask_l), fmask_s=grid(host.pp.fmask_s),
+            phis0=grid(host.pp.phis0))
+        return band
 
     # ------------------------------------------------------------------
     def _season(self, date: cal.Datetime, start: cal.Datetime) -> tuple:
@@ -317,7 +375,7 @@ class Model:
         ``start``), on the device."""
         args, kw = self._season(date, start)
         return coupling.make_date_scalars(self.cfg, self.geom_np, *args,
-                                          self.device, **kw)
+                                          self.device, **kw, rows=self.rows)
 
     def set_anomaly_window(self, start: cal.Datetime) -> None:
         """The SST-anomaly window around ``start``'s month
@@ -325,7 +383,7 @@ class Model:
         cfg = self.cfg
         coupling.initial_anomaly_window(
             cfg, self._bmask_s, (start.year - cfg.issty0) * 12 + start.month,
-            self.mc.clim.sstan3, **self._anomaly_source)
+            self.mc.clim.sstan3, **self._anomaly_source, rows=self.rows)
 
     def advance_anomaly_window(self, start: cal.Datetime,
                                date: cal.Datetime) -> None:
@@ -336,7 +394,7 @@ class Model:
         coupling.advance_anomaly_window(
             cfg, self._bmask_s, self.mc.clim.sstan3,
             (start.year - cfg.issty0) * 12 + date.month,
-            **self._anomaly_source)
+            **self._anomaly_source, rows=self.rows)
 
     def initial_state(self, start: cal.Datetime) -> ModelState:
         """Rest state, day-0 surface and radiation, and the stationary SPPT
@@ -352,7 +410,8 @@ class Model:
         sppt = init_sppt_state(cfg, self.pp.sppt_sigma, self.sppt_seed,
                                self.sppt_noise) if cfg.sppt_on else None
         return ModelState(prog=prog, surf=surf,
-                          rad=init_radiation_state(cfg, self.device),
+                          rad=init_radiation_state(
+                              cfg, self.device, self.lsp.fmask_l.shape[0]),
                           sppt=sppt)
 
     def initialize(self, start: cal.Datetime) -> ModelState:
@@ -386,10 +445,10 @@ class Model:
         for _ in range(n_days):
             args, kw = self._season(date, start)
             days.append(coupling.date_scalars_np(self.cfg, self.geom_np,
-                                                 *args, **kw))
+                                                 *args, **kw, rows=self.rows))
             for _ in range(self.cfg.nsteps):
                 date = cal.newdate(date, self.cfg.nsteps)
-        return coupling.pack_date_scalars(self.cfg, days), date
+        return coupling.pack_date_scalars(self.cfg, days, self.rows), date
 
     def run_day(self, state: ModelState, date: cal.Datetime,
                 start: cal.Datetime, diag_every: int = 1):

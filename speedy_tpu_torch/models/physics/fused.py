@@ -177,9 +177,9 @@ def plain_outputs(cfg, pp, compute_sw: bool, ins: list) -> list:
     shapes. The lowest-level winds are broadcast over the levels: the
     chain reads only the lowest."""
     from . import grid_physics_core
-    col = lambda x: x.reshape(cfg.il, 1)
-    lev = lambda x: x.unsqueeze(-3).expand(
-        *x.shape[:-2], cfg.kx, cfg.il, cfg.ix)
+    il, ix = ins[5].shape[-2:]       # pslg: a latitude band's rows, or all
+    col = lambda x: x.reshape(il, 1)
+    lev = lambda x: x.unsqueeze(-3).expand(*x.shape[:-2], cfg.kx, il, ix)
     a = ins
     outs = grid_physics_core(
         cfg, pp, compute_sw, lev(a[0]), lev(a[1]), a[2], a[3], a[4], a[5],
@@ -188,8 +188,7 @@ def plain_outputs(cfg, pp, compute_sw: bool, ins: list) -> list:
         a[13], a[21], a[14], a[15],
         *((None,) * 4 if compute_sw else a[23:27]))
     outs = list(outs[:10]) + list(outs[10]) + list(outs[11:])
-    shapes = output_shapes(cfg.kx, cfg.il, cfg.ix, compute_sw,
-                           members_of(ins))
+    shapes = output_shapes(cfg.kx, il, ix, compute_sw, members_of(ins))
     return [x if x.shape == s else x.expand(s) for x, s in zip(outs, shapes)]
 
 
@@ -329,7 +328,8 @@ def launch_kernel(cfg, compute_sw: bool, ins: list, block: np.ndarray):
         raise ValueError(f"the column-physics kernel needs CUDA tensors, "
                          f"got {device}")
     members = members_of(ins)
-    sig = _signature(cfg.kx, cfg.il, cfg.ix, dtype, compute_sw, members,
+    il, ix = ins[5].shape[-2:]       # pslg: a latitude band's rows, or all
+    sig = _signature(cfg.kx, il, ix, dtype, compute_sw, members,
                      not cfg.lw_band_vectorized)
     if len(ins) != len(sig.in_shapes):
         raise ValueError(f"{len(ins)} inputs, expected {len(sig.in_shapes)}")
@@ -355,7 +355,7 @@ def launch_kernel(cfg, compute_sw: bool, ins: list, block: np.ndarray):
     fn = library().column_physics_launch
     with torch.cuda.device(device):
         err = fn(int(dtype == torch.float64), cfg.kx, int(compute_sw),
-                 members or 1, int(sig.reflw), cfg.il, cfg.ix,
+                 members or 1, int(sig.reflw), il, ix,
                  in_ptrs.ctypes.data, strides.ctypes.data,
                  out_ptrs.ctypes.data, block.ctypes.data,
                  torch.cuda.current_stream(device).cuda_stream)

@@ -55,8 +55,11 @@ class RadiationState(NamedTuple):
     tsr: torch.Tensor     # [il, ix] net downward SW at TOA
 
 
-def init_radiation_state(cfg, device) -> RadiationState:
-    kx, il, ix = cfg.kx, cfg.il, cfg.ix
+def init_radiation_state(cfg, device, il=None) -> RadiationState:
+    """The radiation state before the first SW step, on ``il`` latitude
+    rows (a band's; all ``cfg.il`` by default)."""
+    kx, ix = cfg.kx, cfg.ix
+    il = cfg.il if il is None else il
     z = lambda *s: torch.zeros(s, dtype=cfg.rdtype, device=device)
     return RadiationState(
         tau2=torch.ones((4, kx, il, ix), dtype=cfg.rdtype, device=device),

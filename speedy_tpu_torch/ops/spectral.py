@@ -15,13 +15,20 @@ Reference quirks kept for parity (legendre.f90, spectral.f90):
 * the meridional-coupling operators drop the i*m term on the last n row
   (spectral.f90:159-162, 185-188);
 * ``uvdx`` on the n=0 row is -a/(m+1) even for m=0 (spectral.f90:68).
+
+A band view (``band_spectral``, the 'sp' axis of parallel/mesh.py) holds
+the rows of one latitude band of the grid-side tables and the group of
+the ranks that hold the other bands: synthesis then writes the band's
+rows, and each analysis sums the bands' partial contractions with one
+all-reduce over that group.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import Any, NamedTuple, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import ModelConfig
 from ..constants import REARTH, PI_F
@@ -49,6 +56,9 @@ class SpectralConsts(NamedTuple):
     cosgr: torch.Tensor     # [il] 1/cos(lat)
     cosgr2: torch.Tensor    # [il] 1/cos^2(lat)
     wt: torch.Tensor        # [iy] Gaussian weights
+    # a band view's process group, over which analyses sum (None: the
+    # tables hold every row)
+    group: Any = None
 
 
 def cmul_i(x: torch.Tensor) -> torch.Tensor:
@@ -213,6 +223,21 @@ def build_spectral(cfg: ModelConfig, geom_np: dict, device) -> SpectralConsts:
                                       cfg.rdtype, device))
 
 
+def band_spectral(sc: SpectralConsts, rows: slice, group, device
+                  ) -> SpectralConsts:
+    """The band view of the full tables ``sc`` on ``device``: the latitude
+    rows ``rows`` of cpol_inv, cpol_dir, cosgr and cosgr2 (copied, so
+    that every band holds exactly the full tables' rows), the other
+    tables as they are, and the process group ``group`` over which
+    ``legendre_dir`` sums the bands (None: no collective)."""
+    band = {"cpol_inv": sc.cpol_inv[..., rows],
+            "cpol_dir": sc.cpol_dir[..., rows],
+            "cosgr": sc.cosgr[rows], "cosgr2": sc.cosgr2[rows]}
+    return SpectralConsts(**{
+        f: band.get(f, getattr(sc, f)).contiguous().to(device)
+        for f in SpectralConsts._fields if f != "group"}, group=group)
+
+
 # ---------------------------------------------------------------------------
 # Transforms (batched over any leading dims)
 # ---------------------------------------------------------------------------
@@ -223,8 +248,36 @@ def legendre_inv(sc: SpectralConsts, spec: torch.Tensor) -> torch.Tensor:
 
 
 def legendre_dir(sc: SpectralConsts, fm: torch.Tensor) -> torch.Tensor:
-    """[..., il, mx, 2] -> [..., mx, nx, 2] (legendre.f90:114-155)."""
-    return torch.einsum("...jmr,mnj->...mnr", fm, sc.cpol_dir)
+    """[..., il, mx, 2] -> [..., mx, nx, 2] (legendre.f90:114-155); on a
+    band view, the band's partial sum summed over ``sc.group``."""
+    out = torch.einsum("...jmr,mnj->...mnr", fm, sc.cpol_dir)
+    if sc.group is not None:
+        out = sum_over(out, sc.group)
+    return out
+
+
+# all-reduces made by sum_over (a captured day's are counted at capture)
+allreduces = 0
+
+
+def sum_over(x: torch.Tensor, group) -> torch.Tensor:
+    """x summed over the ranks of ``group`` (one all-reduce; every rank
+    gets the same sum), made contiguous first. Under NCCL, or Gloo on CPU
+    tensors, in place; Gloo with CUDA tensors (ranks that share a GPU,
+    whose days run eagerly) stages the sum through a host copy, a marked
+    synchronisation (models/captured.py ``host_sync``)."""
+    global allreduces
+    allreduces += 1
+    x = x.contiguous()
+    if x.is_cuda and dist.get_backend(group) != "nccl":
+        from ..models.captured import host_sync
+        with host_sync():
+            host = x.cpu()
+            dist.all_reduce(host, group=group)
+            x.copy_(host)
+    else:
+        dist.all_reduce(x, group=group)
+    return x
 
 
 def fourier_inv(sc: SpectralConsts, fm: torch.Tensor) -> torch.Tensor:

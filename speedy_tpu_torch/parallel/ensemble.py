@@ -17,11 +17,21 @@ month starts it crosses.
 
 With a mesh (parallel/mesh.py) the members are split over the 'dp' ranks,
 one process each: a rank holds the contiguous block ``mesh.members(M)``
-of global members and runs them through its own captured day, with no
-collective inside the day. Member g keeps the seed ``base_seed + g``, so
-its trajectory does not depend on the sharding. The guard's rows are
-reduced over the ranks once per chunk of days, on the host, so every
-rank raises at the same chunk naming the same member and day.
+of global members and runs them through its own captured day. Member g
+keeps the seed ``base_seed + g`` on every rank that holds it, so its
+trajectory does not depend on the sharding. The guard's rows are reduced
+over the ranks once per chunk of days, on the host, so every rank raises
+at the same chunk naming the same member and day.
+
+With sp > 1 the dp row's sp ranks hold the same members, each on its
+latitude band (``mesh.rows``): the model's band view (``Model.for_band``)
+runs the day on the band, with the spectral state replicated and one
+all-reduce over the row's sp group per Legendre analysis, inside the
+captured day under NCCL and in an eager day under Gloo (models/
+captured.py). ``initialize`` boots the full model, as without a mesh, and
+keeps the band's rows of the grid leaves (surf, rad). Output gathers the
+bands over the sp group: a day's grids once a day to sp rank 0, whose
+writers alone write, and ``member_fields`` to every sp rank of the row.
 """
 from __future__ import annotations
 
@@ -31,6 +41,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..convert import band_state
 from ..models.model import (GRID_FIELDS, Model, ModelState, gridded_fields,
                             _to_host)
 from ..models.physics.sppt import Noise, init_sppt_state, stack_states
@@ -54,7 +65,8 @@ class Ensemble:
     generators (the parity tests feed the JAX key chains through it).
     ``mesh``: a ('dp', 'sp') mesh (parallel/mesh.make_mesh); this rank
     then holds the global members ``self.members`` on the mesh's device,
-    which must be the model's, and ``noise`` is sliced to them.
+    which must be the model's, on the latitude rows ``self.rows`` (the
+    model's band view ``self.band``), and ``noise`` is sliced to them.
     """
 
     def __init__(self, model: Model, n_members: int, base_seed: int = 0,
@@ -76,6 +88,27 @@ class Ensemble:
         if noise is not None:
             noise = list(noise)[self.members.start:self.members.stop]
         self.noise: Noise = noise
+        self.band = model if mesh is None else model.for_band(mesh)
+        self.rows = self.band.rows
+        # writers write on the dp row's first sp rank only
+        self.writes = mesh is None or mesh.sp_rank == 0
+
+    def _gather_rows(self, fields: Dict[str, np.ndarray]
+                     ) -> Optional[Dict[str, np.ndarray]]:
+        """Band fields [..., rows, ix] of every sp rank of the dp row,
+        concatenated on the latitude axis in sp order on the row's first
+        sp rank (None on the others); the fields themselves without
+        bands."""
+        group = self.band.sp_group
+        if group is None:
+            return fields
+        parts = [None] * dist.get_world_size(group) if self.writes else None
+        dist.gather_object(fields, parts, dst=self.mesh.sp_root(),
+                           group=group)
+        if not self.writes:
+            return None
+        return {k: np.concatenate([p[k] for p in parts], axis=-2)
+                for k in fields}
 
     @property
     def n_local(self) -> int:
@@ -89,7 +122,10 @@ class Ensemble:
         SPPT states replace the booted one afterwards, so they have not
         been advanced by the boot."""
         model, cfg = self.model, self.model.cfg
-        estate = broadcast_state(model.initialize(start), self.n_local)
+        state = band_state(model.initialize(start), self.rows)
+        if cfg.sst_anomaly_forcing and self.band is not model:
+            self.band.set_anomaly_window(start)
+        estate = broadcast_state(state, self.n_local)
         if cfg.sppt_on:
             sources = self.noise or [None] * self.n_local
             estate = estate._replace(sppt=stack_states([
@@ -116,16 +152,18 @@ class Ensemble:
         Model.run_fast (``guard``, reduced over the ranks of a mesh).
         ``after_day(i)`` runs after day i's replay (and its output).
         """
-        model, cfg = self.model, self.model.cfg
+        model, cfg = self.band, self.model.cfg
         collect = output_writers is not None
         if collect:
             if len(output_writers) != self.n_local:
                 raise ValueError(f"{len(output_writers)} writers for "
                                  f"{self.n_local} members")
             if model_step == 0:
-                g0 = _to_host(gridded_fields(cfg, model.mc, estate.prog))
-                for m, w in enumerate(output_writers):
-                    w(0, start, start, {k: v[m] for k, v in g0.items()})
+                g0 = self._gather_rows(_to_host(gridded_fields(
+                    cfg, model.mc, estate.prog)))
+                if self.writes:
+                    for m, w in enumerate(output_writers):
+                        w(0, start, start, {k: v[m] for k, v in g0.items()})
         cd = model.captured_day(estate, collect_output=collect,
                                  grids=collect)
         cd.load(estate)
@@ -133,7 +171,9 @@ class Ensemble:
 
         def write(day: int) -> None:
             nonlocal date
-            grids = cd.outputs()
+            grids = self._gather_rows(cd.outputs())
+            if not self.writes:
+                return
             for i in range(cfg.nsteps):
                 date = cal.newdate(date, cfg.nsteps)
                 step = model_step + day * cfg.nsteps + i + 1
@@ -182,11 +222,21 @@ class Ensemble:
     def member_fields(self, estate: ModelState, member: int
                       ) -> Dict[str, torch.Tensor]:
         """Global member ``member``'s gridded fields (Model.gridded_fields),
-        on the rank that holds it; another rank raises."""
+        on the rank that holds it; another rank raises. On a mesh with sp
+        > 1, a collective of the dp row's sp ranks: each gets the whole
+        grid, the bands gathered over the sp group."""
         if member not in self.members:
             raise ValueError(
                 f"member {member} is not held here: this rank holds "
                 f"{self.members.start}..{self.members.stop - 1}")
         local = member - self.members.start
         prog = type(estate.prog)(*(x[local] for x in estate.prog))
-        return self.model.gridded_fields(prog)
+        fields = self.band.gridded_fields(prog)
+        group = self.band.sp_group
+        if group is None:
+            return fields
+        parts = [None] * dist.get_world_size(group)
+        dist.all_gather_object(parts, _to_host(fields), group=group)
+        return {k: torch.from_numpy(np.concatenate(
+            [p[k] for p in parts], axis=-2)).to(self.band.device)
+            for k in fields}

@@ -37,9 +37,12 @@ and 8 members, its refusal of bad inputs, and the main path's launches
 counted as reference-order ones; an SST-anomaly run across a month start
 replayed against the eager days (torch.equal); one K1 launch a step of a
 replayed T85 day. Model.run(debug_nans=True), the CLI's --debug-nans,
-against the replayed Model.run: the same state and written fields.
+against the replayed Model.run: the same state and written fields. The
+sp axis: K1 at latitude-band shapes against its plain chain, and two
+sp ranks on one card (Gloo, eager days) against the unsharded run.
 """
 import ctypes
+import json
 import os
 import sys
 
@@ -594,3 +597,57 @@ def test_two_ranks_on_one_card_equal_unsharded_blocks(smoke, bc, tmp_path):
                 np.testing.assert_array_equal(
                     got[f"{group}.{f}"][first:first + 2], v.cpu().numpy(),
                     err_msg=f"{group}.{f}")
+
+
+@pytest.mark.parametrize("rows", [24, 12])
+@pytest.mark.parametrize("compute_sw", [True, False])
+@pytest.mark.parametrize("precision", ["fp64", "fp32"])
+def test_k1_at_band_shapes_matches_plain(smoke, bc, precision, compute_sw,
+                                         rows):
+    """K1 on the northernmost ``rows`` latitude rows of the perturbed
+    booted T30 inputs (an sp rank's band), against its plain chain on the
+    same CUDA tensors."""
+    m = Model(t30(precision=precision), device="cuda", bc_arrays=bc)
+    ins, block = bp.physics_case(m, compute_sw)
+    band = smoke.band_inputs(bp.perturb(ins), slice(m.cfg.il - rows,
+                                                    m.cfg.il))
+    kout = fused.launch_kernel(m.cfg, compute_sw, band, block)
+    pout = fused.plain_outputs(m.cfg, m.pp, compute_sw, band)
+    assert tuple(kout[4].shape) == (rows, m.cfg.ix)
+    worst = max(e[0] for e in bp.field_errors(kout, pout))
+    assert worst <= bp.error_bound(m.cfg.rdtype), worst
+
+
+def test_sp_ranks_on_one_card_match_unsharded(smoke, bc, tmp_path):
+    """tests/torch_mesh_worker.py over dp=1 x sp=2 on cuda:0 (Gloo, so
+    each day runs eagerly), T21 kx=5 fp64, 2 SPPT members, a day: the
+    gathered state within 1e-12 per field and member of an unsharded
+    Ensemble's on the card, the ranks' spectral leaves equal."""
+    import subprocess
+    env = dict(os.environ, PYTHONPATH=REPO_ROOT)
+    r = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2",
+         os.path.join(REPO_ROOT, "tests", "torch_mesh_worker.py"),
+         str(tmp_path), "--device", "cuda:0", "--sp", "2", "--members",
+         "2", "--no-trip"], env=env, capture_output=True, text=True,
+        timeout=600)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-3000:]
+    m = Model(t30(precision="fp64", sppt_on=True, trunc=21, ix=64, il=32,
+                  kx=5), device="cuda", bc_arrays=bc)
+    ens = Ensemble(m, 2, base_seed=5)
+    estate, _ = ens.run_days(ens.initialize(START), START, 1)
+    got = np.load(tmp_path / "gathered.npz")
+    for group in ("prog", "surf", "rad"):
+        for f, v in getattr(estate, group)._asdict().items():
+            v = v.cpu().numpy()
+            for k in range(2):
+                err = np.abs(got[f"{group}.{f}"][k] - v[k]).max() \
+                    / max(np.abs(v[k]).max(), 1e-300)
+                assert err <= 1e-12, (group, f, k, err)
+    a, b = (np.load(tmp_path / f"spec{k}.npz") for k in (0, 1))
+    for f in a.files:
+        assert np.array_equal(a[f], b[f]), f
+    runs = [json.load(open(tmp_path / f"run{k}.json")) for k in (0, 1)]
+    assert [x["captured"] for x in runs] == [False, False]
+    assert [x["allreduces"] for x in runs] == [2 * m.cfg.nsteps + 2] * 2

@@ -95,7 +95,9 @@ def test_member_blocks_match_jax_sharding(dp):
 
 
 def test_mesh_refusals():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # an sp axis is ported (tests/test_torch_mesh_sp.py): without a
+    # process group it needs the ranks as any mesh does
+    with pytest.raises(ValueError, match="1 x 2 needs 2 ranks"):
         make_mesh(1, 2, device="cpu")
     with pytest.raises(ValueError, match="2 ranks"):
         make_mesh(2, 1, device="cpu")
