@@ -172,6 +172,7 @@ from speedy_tpu_torch.bench_physics import OUTPUT_NAMES, field_errors
 from speedy_tpu_torch.bench_step import (REPEATS, booted, capture_day,
                                          day_times, trace)
 from speedy_tpu_torch.bench_transform import card_line, time_graph_ms, time_ms
+from speedy_tpu_torch.utils.tracing import counters, reset
 
 STEP_BOUND = 1e-10        # relative, CPU vs CUDA prognostics after 6 steps
 TRANSFORM_BOUND = {torch.float64: 1e-12, torch.float32: 1e-5}  # field-normalised
@@ -233,10 +234,9 @@ def bench_path(reps):
     launch counts set to 0 just before and read just after. Returns (ok,
     records keyed by batch, synthesis launches, analysis launches)."""
     from speedy_tpu_torch import bench_transform
-    from speedy_tpu_torch.ops import fused_transforms as ft
-    ft.reset_launches()
+    reset()
     records = bench_transform.run("t30", BENCH_BATCHES, reps)
-    n_syn, n_ana = ft.launches_syn, ft.launches_ana
+    n_syn, n_ana = counters["k2.launches_syn"], counters["k2.launches_ana"]
     # per batch and direction: warm-up + reps eager, warm-up + reps captured
     expect = len(records) * 2 * (reps + 1)
     print(f"[6] bench_transform t30 ({len(records)} batches, {reps} reps): "
@@ -350,7 +350,6 @@ def sppt_phase(bc, start, card):
     fp32 days on the card."""
     from speedy_tpu_torch.config import t30
     from speedy_tpu_torch.models.model import Model
-    from speedy_tpu_torch.models.physics import fused
     states = {}
     for dev in ("cpu", "cuda"):
         m = Model(t30(precision="fp64", sppt_on=True), device=dev,
@@ -369,7 +368,7 @@ def sppt_phase(bc, start, card):
 
     model = Model(t30(sppt_on=True), device="cuda", bc_arrays=bc)
     _, capture_s, _ = capture_day(model, model.initialize(start), start)
-    fused.reset_launches()
+    reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state = model.initialize(start)
@@ -377,12 +376,13 @@ def sppt_phase(bc, start, card):
     state = model.run_fast(start, 2, state=state)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    n_launch, expect = fused.launches, 2 + 2 * model.cfg.nsteps
+    n_launch, expect = counters["k1.launches"], 2 + 2 * model.cfg.nsteps
     finite = all(bool(torch.isfinite(x).all()) for x in state.prog)
     print(f"[7] SPPT fp32 T30 2 days: {2 / ((t2 - t1) / 60.0):.1f} "
           f"sim-days/min (run_fast {t2 - t1:.3f} s, initialize "
           f"{t1 - t0:.3f} s; capture before them {capture_s:.3f} s) on "
-          f"{card}; K1 launches {n_launch} (sw {fused.launches_sw}), "
+          f"{card}; K1 launches {n_launch} "
+          f"(sw {counters['k1.launches_sw']}), "
           f"expected {expect}; finite={finite}")
     return ok and finite and n_launch == expect
 
@@ -467,7 +467,6 @@ def ensemble_phase(bc, start, card):
     64-member run as (all, sw))."""
     from speedy_tpu_torch.config import t30
     from speedy_tpu_torch.models.model import Model, one_step
-    from speedy_tpu_torch.models.physics import fused
     from speedy_tpu_torch.parallel.ensemble import Ensemble
 
     t_phase = time.perf_counter()
@@ -523,13 +522,14 @@ def ensemble_phase(bc, start, card):
         ens = Ensemble(model, members, base_seed=0)
         estate = ens.initialize(start)
         _, capture_s, pool = capture_day(model, estate, start)
-        fused.reset_launches()
+        reset()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         estate, _ = ens.run_days(estate, start, 2)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / 2
-        n_launch, n_sw = fused.launches, fused.launches_sw
+        n_launch = counters["k1.launches"]
+        n_sw = counters["k1.launches_sw"]
         finite = all(bool(torch.isfinite(x).all())
                      for g in estate[:3] for x in g)
         spread = min(float((estate.prog.vor[k] - estate.prog.vor[0]).abs()
@@ -766,7 +766,6 @@ def configuration_phase(bc, card):
     launches on that path as (all, sw))."""
     from speedy_tpu_torch.config import t30
     from speedy_tpu_torch.models.model import Model
-    from speedy_tpu_torch.models.physics import fused
     from speedy_tpu_torch.utils import calendar as cal
     from speedy_tpu_torch.utils.synthetic_bc import synthetic_boundaries
 
@@ -806,7 +805,7 @@ def configuration_phase(bc, card):
     model = Model(t30(lw_band_vectorized=False), device="cuda",
                   bc_arrays=bc)
     _, capture_s, pool = capture_day(model, model.initialize(start), start)
-    fused.reset_launches()
+    reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state = model.initialize(start)
@@ -814,18 +813,20 @@ def configuration_phase(bc, card):
     state = model.run_fast(start, 2, state=state)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    n, n_sw = fused.launches_reflw, fused.launches_reflw_sw
+    n = counters["k1.launches_reflw"]
+    n_sw = counters["k1.launches_reflw_sw"]
     nsteps, nstrad = model.cfg.nsteps, model.cfg.nstrad
     expect = (2 + 2 * nsteps, 2 + 2 * nsteps // nstrad)
     finite = all(bool(torch.isfinite(x).all()) for x in state.prog)
-    good = (n, n_sw) == expect and fused.launches == n and finite
+    good = (n, n_sw) == expect and counters["k1.launches"] == n and finite
     ok &= good
     print(f"[11] reference LW order fp32 T30 2 days: "
           f"{2 / ((t2 - t1) / 60.0):.1f} sim-days/min (run_fast "
           f"{t2 - t1:.3f} s, initialize {t1 - t0:.3f} s; capture before "
           f"them {capture_s:.3f} s, graph pool {pool / 2**20:.1f} MiB) on "
           f"{card}; reference-order K1 launches {n} (sw {n_sw}), expected "
-          f"{expect[0]} ({expect[1]}), of {fused.launches} K1 launches; "
+          f"{expect[0]} ({expect[1]}), of {counters['k1.launches']} K1 "
+          "launches; "
           f"finite={finite} {'ok' if good else 'FAILED'}")
     print(f"[11] phase time {time.perf_counter() - t_phase:.1f} s")
     return ok, (n, n_sw)
@@ -836,7 +837,6 @@ def presets_phase(bc, card):
     T85, T42, T63 and T170 in the guard."""
     from speedy_tpu_torch.config import from_preset, t85
     from speedy_tpu_torch.models.model import Model
-    from speedy_tpu_torch.models.physics import fused
     from speedy_tpu_torch.utils import calendar as cal
 
     t_phase = time.perf_counter()
@@ -853,7 +853,7 @@ def presets_phase(bc, card):
         cfg = model.cfg
         state = model.initialize(start)
         _, capture_s, pool = capture_day(model, state, start)
-        fused.reset_launches()
+        reset()
         begin, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -864,7 +864,7 @@ def presets_phase(bc, card):
         wall = time.perf_counter() - t0
         steps = days * cfg.nsteps
         finite = all(bool(torch.isfinite(x).all()) for x in out.prog)
-        good = fused.launches == steps and finite
+        good = counters["k1.launches"] == steps and finite
         ok &= good
         print(f"[12] {preset} fp32 ({cfg.ix}x{cfg.il}x{cfg.kx}, "
               f"{cfg.nsteps} steps a day), {days} replayed day"
@@ -872,8 +872,9 @@ def presets_phase(bc, card):
               f"{days / (wall / 60.0):.2f} sim-days/min, "
               f"{wall / steps * 1e3:.3f} ms/step, device "
               f"{begin.elapsed_time(end) / steps:.3f} ms/step (CUDA events "
-              f"around run_fast); K1 launches {fused.launches} (sw "
-              f"{fused.launches_sw}), expected {steps}; warm-up day and "
+              f"around run_fast); K1 launches {counters['k1.launches']} "
+              f"(sw {counters['k1.launches_sw']}), expected {steps}; "
+              "warm-up day and "
               f"capture {capture_s:.2f} s, graph pool {pool / 2**20:.1f} "
               f"MiB; finite={finite} on {card} "
               f"({time.perf_counter() - t_preset:.1f} s) "
@@ -954,7 +955,6 @@ def cli_phase(bc, card):
     without and with --output-every-step."""
     from speedy_tpu_torch.config import t30
     from speedy_tpu_torch.models.model import Model
-    from speedy_tpu_torch.models.physics import fused
     from speedy_tpu_torch.utils import calendar as cal
     from speedy_tpu_torch.utils.native_output import AsyncNetCDFWriter
     from speedy_tpu_torch.utils.output import NetCDFWriter
@@ -1015,10 +1015,10 @@ def cli_phase(bc, card):
         r2 = program("[13] (b)", "speedy_tpu_torch", *run, "--end",
                      "1982-01-03", *ck, "--auto-resume", "--output-dir",
                      d("b2"))
-        fused.reset_launches()
+        reset()
         rc, text = in_process_cli(list(run) + [
             "--end", "1982-01-03", "--output-dir", d("straight")])
-        n_k1 = fused.launches
+        n_k1 = counters["k1.launches"]
         # the boot, the warm-up day before the capture, the replayed days
         expect = 2 + (CLI_DAYS + 1) * t30().nsteps
         last = "198201030000.nc"
@@ -1031,7 +1031,8 @@ def cli_phase(bc, card):
         print(f"[13] (b) --auto-resume from the day-1 checkpoint: "
               f"{resumed}; its {last} against the straight 2-day run's "
               f"(in this process): largest difference {worst:.3e}; the "
-              f"straight run's K1 launches {n_k1} (sw {fused.launches_sw}), "
+              f"straight run's K1 launches {n_k1} "
+              f"(sw {counters['k1.launches_sw']}), "
               f"expected {expect} (2 in the boot, 36 in the warm-up day "
               f"before the capture, 36 a replayed day) "
               f"{'ok' if good else 'FAILED'}")
@@ -1648,8 +1649,6 @@ def sp_nccl_phase(bc, card):
     from speedy_tpu_torch.config import t30
     from speedy_tpu_torch.models.captured import leaves
     from speedy_tpu_torch.models.model import Model
-    from speedy_tpu_torch.models.physics import fused
-    from speedy_tpu_torch.ops import spectral
     from speedy_tpu_torch.parallel.ensemble import Ensemble
     from speedy_tpu_torch.parallel.mesh import make_mesh, new_group
     from speedy_tpu_torch.utils import calendar as cal
@@ -1671,12 +1670,11 @@ def sp_nccl_phase(bc, card):
         equal = lambda a, b: all(torch.equal(x, y) for x, y in
                                  zip(leaves(a), leaves(b), strict=True))
         cd, capture_s, _ = capture_day(band, state, start)
-        spectral.allreduces = 0
-        fused.reset_launches()
+        reset()
         with sync_error():
             cd.advance(0, noise)
         torch.cuda.synchronize()
-        per_day = (spectral.allreduces, fused.launches)
+        per_day = (counters["spectral.allreduces"], counters["k1.launches"])
         replayed = cd.result()
         eager = side_eager_day(band, state, start, noise)[0]
         plain_cd, _, _ = capture_day(model, state, start)
@@ -1692,12 +1690,14 @@ def sp_nccl_phase(bc, card):
         nsteps = model.cfg.nsteps
         good = cd.captured and cd.graph is not None and all(eq) \
             and per_day == (2 * nsteps + 2, nsteps) \
-            and cd.allreduces == 2 * nsteps + 2 and n_k1 == nsteps
+            and cd.counts["spectral.allreduces"] == 2 * nsteps + 2 \
+            and n_k1 == nsteps
         ok &= good
         print(f"[18] (b) fp64 T30 SPPT, one NCCL rank, an sp group of one "
               f"rank (rows 0..{model.cfg.il - 1}): the day captured "
               f"{cd.captured} ({capture_s:.3f} s, warm-up day included) with "
-              f"{cd.allreduces} all-reduces in the graph; a replayed day "
+              f"{cd.counts['spectral.allreduces']} all-reduces in the graph; "
+              "a replayed day "
               f"counts {per_day[0]} all-reduces and {per_day[1]} K1 "
               f"launches (expected {2 * nsteps + 2} and {nsteps}); replay "
               f"== the band's eager day {eq[0]}, == the unsharded replayed "
@@ -1717,7 +1717,7 @@ def sp_nccl_phase(bc, card):
         rates = {k: [] for k in ensembles}
         launches = {}
         for k in list(ensembles) + list(ensembles)[::-1]:
-            fused.reset_launches()
+            reset()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             final, _ = ensembles[k].run_days(states[k], start,
@@ -1725,9 +1725,9 @@ def sp_nccl_phase(bc, card):
             torch.cuda.synchronize()
             rates[k].append(SP_NCCL_MEMBERS * SP_NCCL_DAYS * 60.0
                             / (time.perf_counter() - t0))
-            launches[k] = fused.launches
+            launches[k] = counters["k1.launches"]
             finite = all(bool(torch.isfinite(x).all()) for x in final.prog)
-            ok &= finite and fused.launches == SP_NCCL_DAYS * nsteps
+            ok &= finite and counters["k1.launches"] == SP_NCCL_DAYS * nsteps
         print(f"[18] (b) fp32 T30 SPPT {SP_NCCL_MEMBERS} members "
               f"{SP_NCCL_DAYS} replayed days (after a warm-up day and the "
               f"capture), in turns: member-days/min " + "; ".join(
@@ -1858,7 +1858,7 @@ def main() -> int:
     # initialize + 2 days with the guard, each day one replay
     model = Model(t30(), device="cuda", bc_arrays=bc)
     _, capture_s, pool = capture_day(model, model.initialize(start), start)
-    fused.reset_launches()
+    reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state = model.initialize(start)
@@ -1866,7 +1866,8 @@ def main() -> int:
     state = model.run_fast(start, 2, state=state)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    n_launch, n_launch_sw = fused.launches, fused.launches_sw
+    n_launch = counters["k1.launches"]
+    n_launch_sw = counters["k1.launches_sw"]
     expect = 2 + 2 * model.cfg.nsteps
     finite = all(bool(torch.isfinite(x).all()) for x in state.prog)
     days_per_min = 2 / ((t2 - t1) / 60.0)

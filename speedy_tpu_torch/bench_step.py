@@ -136,8 +136,8 @@ def day_times(model, start, members=None) -> dict:
     (all, SW), the profiles and, with SPPT, the pre-draw of a day's
     innovations: its host time (median of REPEATS) and its kernels' device
     time (a profiler trace)."""
-    from speedy_tpu_torch.models.physics import fused
     from speedy_tpu_torch.models.physics.sppt import draw_day
+    from speedy_tpu_torch.utils import tracing
     cfg = model.cfg
     state, noise, replay = booted(model, start, members)
     cd, capture_s, pool = capture_day(model, state, start)
@@ -146,12 +146,14 @@ def day_times(model, start, members=None) -> dict:
     for _ in range(REPEATS):
         for name, fn in (("eager", eager), ("replayed", replay)):
             torch.cuda.synchronize()
-            fused.reset_launches()
+            tracing.reset()
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             times[name].append(time.perf_counter() - t0)
-    k1_launches = (fused.launches, fused.launches_sw)   # the last replay's
+    # the last replay's
+    k1_launches = (tracing.counters["k1.launches"],
+                   tracing.counters["k1.launches_sw"])
     rec = dict(times, capture_s=capture_s, pool_bytes=pool,
                reserved_bytes=torch.cuda.memory_reserved(),
                k1_launches=k1_launches,

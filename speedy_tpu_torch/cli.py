@@ -27,12 +27,14 @@ from __future__ import annotations
 import argparse
 import contextlib
 import glob
+import json
 import os
 import re
 import sys
 import time
 
 from .config import from_preset, PRESETS
+from .utils import tracing
 from .utils.calendar import Datetime
 
 # --matmul-precision (the JAX package's XLA names) ->
@@ -119,10 +121,40 @@ def synchronize(model) -> None:
         torch.cuda.synchronize(model.device)
 
 
+def counter_line() -> str:
+    """The end-of-run line of the program's counters (utils/tracing.py):
+    column-physics kernel launches, graph captures and the megabytes the
+    staged days copied to the host."""
+    c = tracing.counters
+    return (f"column-physics kernel launches {c['k1.launches']} "
+            f"(sw {c['k1.launches_sw']}), graph captures "
+            f"{c['graph.captures']}, fetched {c['d2h.bytes'] / 1e6:.3f} MB")
+
+
+def write_spans(path: str, t0: float, t1: float) -> None:
+    """The program's spans and counter events (utils/tracing.py) that
+    ended within [t0, t1] of ``time.perf_counter``, as JSON: ``t0``, the
+    profile's start on that clock, ``spans`` (name, start, end, id,
+    parent id) and ``counts`` (name, time, amount); ``whole`` is false
+    where the ring had dropped some of them."""
+    spans, counts = [], []
+    for e in tracing.events():
+        if t0 <= e.end <= t1:
+            if e.seq < 0:
+                counts.append([e.name, e.start, e.n])
+            else:
+                spans.append([e.name, e.start, e.end, e.seq, e.parent])
+    with open(path, "w") as f:
+        json.dump({"t0": t0, "whole": tracing.whole_since(t0),
+                   "spans": spans, "counts": counts}, f)
+
+
 @contextlib.contextmanager
 def _profiled(directory, device):
     """A torch.profiler trace of the block written into ``directory``
-    (the counterpart of jax.profiler's start_trace/stop_trace)."""
+    (the counterpart of jax.profiler's start_trace/stop_trace), with the
+    program's spans and counter events of the block beside it
+    (``spans.json``, ``write_spans``)."""
     if not directory:
         yield
         return
@@ -131,10 +163,13 @@ def _profiled(directory, device):
     if device.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
         yield
+        t1 = time.perf_counter()
     os.makedirs(directory, exist_ok=True)
     path = os.path.join(directory, "trace.json")
     prof.export_chrome_trace(path)
+    write_spans(os.path.join(directory, "spans.json"), t0, t1)
     print(f"profile: {path}")
 
 
@@ -230,7 +265,6 @@ def _run_ensemble(args, mesh) -> int:
     import torch.distributed as dist
     from .convert import gather_members
     from .models.model import Model
-    from .models.physics import fused
     from .models.state import PrognosticState
     from .parallel.ensemble import Ensemble
     from .utils.output import NetCDFWriter
@@ -285,8 +319,7 @@ def _run_ensemble(args, mesh) -> int:
             "the first")
     if model.device.type == "cuda":
         print(("" if mesh is None else f"rank {mesh.rank}: ")
-              + f"column-physics kernel launches {fused.launches} "
-              f"(sw {fused.launches_sw})")
+              + counter_line())
     if writers is not None:
         say(f"wrote per-step member files to {args.output_dir}/"
             f"memberNNN/")
@@ -381,6 +414,8 @@ def _run(args) -> int:
             _drain(writer)
         wall = time.time() - t0
     print(f"wall time: {wall:.3f}s")
+    if model.device.type == "cuda":
+        print(counter_line())
     return 0
 
 

@@ -42,24 +42,29 @@ The first day of a ``CapturedDay`` on CUDA warms up on a side stream on
 the staged copy of the state (building and loading the kernel libraries,
 K1's shared-memory opt-in, cuBLAS's handles), then captures. Capture or
 replay errors propagate; nothing falls back to eager execution. A replay
-runs no Python, so the column-physics wrapper's launch counters
-(physics/fused.py) do not see it: the graph's K1 launches are counted at
-capture (which launches nothing, so the counters are restored) and added
-at each replay.
+runs no Python, so the program's counters (utils/tracing.py: the K1
+launches, the all-reduces) do not see it: what the body counts while it is
+captured, which launches nothing, is taken back out of them and kept
+(``counts``), and added at each replay.
+
+The day's spans (utils/tracing.py): ``capture.warmup`` and
+``capture.graph``; in ``advance``, ``day.draw`` around the SPPT draws and
+``day.replay`` around the replay (the eager day where there is no graph);
+``day.fetch`` around each host copy, whose bytes count as ``d2h.bytes``.
 """
 from __future__ import annotations
 
 import contextlib
 import gc
+from collections import Counter
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from . import coupling
-from .physics import fused
-from ..ops import spectral
 from .physics.sppt import draw_day
+from ..utils import tracing
 from ..utils.diagnostics import Diagnostics, guard_extrema
 
 # the accumulating variant's sums: day-end gridded fields, then step fluxes
@@ -210,9 +215,7 @@ class CapturedDay:
         self.generator = None
         self.pool = pool
         self.graph = None
-        # the graph's K1 launches by counter (fused.COUNTERS)
-        self.k1_counts = dict.fromkeys(fused.COUNTERS, 0)
-        self.allreduces = 0   # the graph's (spectral.sum_over), as K1's
+        self.counts = Counter()   # what the graph's body counted
         self._source = None
 
     # ------------------------------------------------------------------
@@ -258,46 +261,36 @@ class CapturedDay:
             raise RuntimeError("load a state and set its days before the "
                                "first day")
         with host_sync():
-            self.date.copy_(self.days[0])
-            acc = self.acc_flat.clone()
-            side = torch.cuda.Stream(self.device)
-            side.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(side):
-                self._body()
-            torch.cuda.current_stream(self.device).wait_stream(side)
-            copy_state(self.state, self._source)
-            self.acc_flat.copy_(acc)
-            before = {n: getattr(fused, n) for n in fused.COUNTERS}
-            reduces = spectral.allreduces
-            graph = torch.cuda.CUDAGraph()
-            # a collection inside the capture could destroy another graph
-            # (of a dropped object in a reference cycle), which a capturing
-            # stream does not permit: it would invalidate this capture
-            gc.collect()
-            gc_on = gc.isenabled()
-            gc.disable()
-            try:
-                with torch.cuda.graph(graph, pool=self.pool):
+            with tracing.span("capture.warmup"):
+                self.date.copy_(self.days[0])
+                acc = self.acc_flat.clone()
+                side = torch.cuda.Stream(self.device)
+                side.wait_stream(torch.cuda.current_stream(self.device))
+                with torch.cuda.stream(side):
                     self._body()
-            finally:
-                if gc_on:
-                    gc.enable()
-            self.k1_counts = {n: getattr(fused, n) - v
-                              for n, v in before.items()}
-            for n, v in before.items():
-                setattr(fused, n, v)
-            self.allreduces = spectral.allreduces - reduces
-            spectral.allreduces = reduces
+                torch.cuda.current_stream(self.device).wait_stream(side)
+                copy_state(self.state, self._source)
+                self.acc_flat.copy_(acc)
+            with tracing.span("capture.graph"):
+                graph = torch.cuda.CUDAGraph()
+                # a collection inside the capture could destroy another
+                # graph (of a dropped object in a reference cycle), which a
+                # capturing stream does not permit: it would invalidate
+                # this capture
+                gc.collect()
+                gc_on = gc.isenabled()
+                gc.disable()
+                try:
+                    with tracing.recorded() as counts, \
+                            torch.cuda.graph(graph, pool=self.pool):
+                        self._body()
+                finally:
+                    if gc_on:
+                        gc.enable()
+            tracing.count("graph.captures")
+        self.counts = counts
         self.graph = graph
         self._source = None
-
-    @property
-    def k1_launches(self) -> int:
-        return self.k1_counts["launches"]
-
-    @property
-    def k1_launches_sw(self) -> int:
-        return self.k1_counts["launches_sw"]
 
     # ------------------------------------------------------------------
     def load(self, state) -> None:
@@ -335,14 +328,14 @@ class CapturedDay:
         self.capture()
         self.date.copy_(self.days[d])
         if self.cfg.sppt_on:
-            self.generator = draw_day(self.generator, noise, self.eta)
-        if self.graph is not None:
-            self.graph.replay()
-            for n, v in self.k1_counts.items():
-                setattr(fused, n, getattr(fused, n) + v)
-            spectral.allreduces += self.allreduces
-        else:
-            self._body()
+            with tracing.span("day.draw"):
+                self.generator = draw_day(self.generator, noise, self.eta)
+        with tracing.span("day.replay"):
+            if self.graph is not None:
+                self.graph.replay()
+                tracing.replay(self.counts)
+            else:
+                self._body()
         self.rows[d].copy_(self.guard)
 
     def reset_accumulators(self) -> None:
@@ -354,9 +347,10 @@ class CapturedDay:
     def _fetch(self, tensor: torch.Tensor) -> np.ndarray:
         """A host copy of ``tensor`` (a copy on the CPU too, where
         ``.cpu()`` would return the static buffer itself, which the next
-        day overwrites)."""
+        day overwrites); its bytes count as ``d2h.bytes``."""
         self.host_copies += 1
-        with host_sync():
+        tracing.count("d2h.bytes", tensor.numel() * tensor.element_size())
+        with tracing.span("day.fetch"), host_sync():
             return tensor.to("cpu", copy=True).numpy()
 
     def guard_rows(self, n: int) -> np.ndarray:

@@ -41,6 +41,7 @@ from ..constants import GRAV, P0
 from ..geometry import Geometry, build_geometry, build_geometry_np
 from ..ops import spectral as sp
 from ..utils import calendar as cal
+from ..utils import tracing
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.diagnostics import (Diagnostics, check_days,
                                  compute_diagnostics, check_diagnostics,
@@ -267,8 +268,16 @@ class Model:
     (all of them, but for a band view, ``for_band``), ``sp_group`` the
     process group its analyses sum over (None: no collective) and
     ``collectives`` that group's backend.
+
+    Spans (utils/tracing.py): ``setup.tables`` (building the model),
+    ``setup.boot`` (``initialize``), ``call.run_fast`` and ``call.run``
+    around a call; within a call ``day.dates`` (date inputs built and
+    uploaded), ``day.guard`` (the stability guard), ``day.write`` (the
+    writer) and ``day.checkpoint``; and the staged day's own
+    (models/captured.py).
     """
 
+    @tracing.span("setup.tables")
     def __init__(self, cfg: ModelConfig, device=None, bc_search=None,
                  bc_arrays=None, sppt_seed: int = 0,
                  sppt_noise: Noise = None):
@@ -414,6 +423,7 @@ class Model:
                               cfg, self.device, self.lsp.fmask_l.shape[0]),
                           sppt=sppt)
 
+    @tracing.span("setup.boot")
     def initialize(self, start: cal.Datetime) -> ModelState:
         """Initial state after the leapfrog bootstrap."""
         return boot(self.cfg, self.pp, self.lsp, self.mc,
@@ -505,18 +515,21 @@ class Model:
                     self.advance_anomaly_window(start, date)
                 chunk = min(chunk,
                             cal.NDAYCAL[date.month - 1] - date.day + 1)
-            rows, date = self.make_ds_days(date, start, chunk)
-            cd.set_days(rows)
+            with tracing.span("day.dates"):
+                rows, date = self.make_ds_days(date, start, chunk)
+                cd.set_days(rows)
             for d in range(chunk):
                 cd.advance(d, noise)
                 if after_day is not None:
                     after_day(done + d)
             if check:
-                guard(cd.guard_rows(chunk), done)
+                with tracing.span("day.guard"):
+                    guard(cd.guard_rows(chunk), done)
             done += chunk
         return date
 
     # ------------------------------------------------------------------
+    @tracing.span("call.run_fast")
     def run_fast(self, start: cal.Datetime, n_days: int,
                  state: Optional[ModelState] = None,
                  check: bool = True, max_chunk_days: int = 90
@@ -536,6 +549,7 @@ class Model:
                         max_chunk_days, anomaly_months=True)
         return cd.result()
 
+    @tracing.span("call.run")
     def run(self, start: cal.Datetime, end: cal.Datetime,
             output_writer=None, verbose: bool = True,
             state: Optional[ModelState] = None,
@@ -573,8 +587,9 @@ class Model:
             raise ValueError(
                 f"run start/resume date {date} is not before end {end}")
         if output_writer is not None and model_step == 0:
-            output_writer(0, date, start,
-                          _to_host(self.gridded_fields(state.prog)))
+            fields = _to_host(self.gridded_fields(state.prog))
+            with tracing.span("day.write"):
+                output_writer(0, date, start, fields)
         if checkpoint_every and checkpoint_dir:
             os.makedirs(checkpoint_dir, exist_ok=True)
         collect = output_writer is not None
@@ -591,27 +606,31 @@ class Model:
                 state, day = self.checked_day(state, date, start, model_step,
                                               collect)
             else:
-                cd.set_days(self.make_ds_days(date, start, 1)[0])
+                with tracing.span("day.dates"):
+                    cd.set_days(self.make_ds_days(date, start, 1)[0])
                 cd.advance(0, self.sppt_noise)
                 day = cd.outputs()
-            for i in range(cfg.nsteps):
-                model_step += 1
-                date = cal.newdate(date, cfg.nsteps)
-                diag_i = Diagnostics(*[day[f][i] for f in Diagnostics._fields])
-                if model_step % cfg.nstdia == 0 and verbose:
-                    print(format_diagnostics(diag_i, model_step))
-                check_diagnostics(diag_i, model_step)
-                if collect and model_step % cfg.nsteps_out == 0:
-                    output_writer(model_step, date, start,
-                                  {k: day[k][i] for k in GRID_FIELDS})
-                if not date < end:
-                    break
+            with tracing.span("day.guard"):
+                for i in range(cfg.nsteps):
+                    model_step += 1
+                    date = cal.newdate(date, cfg.nsteps)
+                    diag_i = Diagnostics(*[day[f][i]
+                                           for f in Diagnostics._fields])
+                    if model_step % cfg.nstdia == 0 and verbose:
+                        print(format_diagnostics(diag_i, model_step))
+                    check_diagnostics(diag_i, model_step)
+                    if collect and model_step % cfg.nsteps_out == 0:
+                        with tracing.span("day.write"):
+                            output_writer(model_step, date, start,
+                                          {k: day[k][i] for k in GRID_FIELDS})
+                    if not date < end:
+                        break
             day_count += 1
             if checkpoint_every and checkpoint_dir and \
                     day_count % checkpoint_every == 0:
                 name = (f"ckpt_{date.year:04d}{date.month:02d}"
                         f"{date.day:02d}{date.hour:02d}{date.minute:02d}.npz")
-                with host_sync():
+                with tracing.span("day.checkpoint"), host_sync():
                     save_checkpoint(
                         os.path.join(checkpoint_dir, name), current(),
                         date, model_step, start=start,

@@ -12,9 +12,10 @@ structure as ``grid_physics_core``. On CPU tensors it runs that plain
 chain; on CUDA tensors it launches the kernel or raises. The kernel is
 built in both LW orders of the chain (``cfg.lw_band_vectorized``: the
 band-vectorized sweeps, or with False the reference-order ones), and the
-plain twin follows the same config. ``launches`` counts kernel launches
-(``launches_sw`` those of the shortwave variant), ``launches_reflw`` and
-``launches_reflw_sw`` those of the reference LW order among them.
+plain twin follows the same config. Each launch is counted
+(utils/tracing.py): ``k1.launches``, ``k1.launches_sw`` those of the
+shortwave variant, ``k1.launches_reflw`` and ``k1.launches_reflw_sw``
+those of the reference LW order among them.
 
 An ensemble's inputs carry a leading member axis, and its members are
 extra columns of the same launch: M x il x ix columns, a row of blocks
@@ -34,6 +35,7 @@ import numpy as np
 import torch
 
 from ...constants import GRAV, P0, RGAS
+from ...utils import tracing
 from . import convection, condensation, shortwave
 from . import vertical_diffusion as vdif_mod
 from .surface import SurfaceFluxes
@@ -51,19 +53,6 @@ MAXL = 9                    # slots per level table in the argument block
 N_TABLES, N_SCALARS = 15, 16
 COLS, LANES = 32, 8         # a block: columns x lanes per column (kx <= 8)
 THREADS = COLS * LANES
-
-launches = 0
-launches_sw = 0
-launches_reflw = 0
-launches_reflw_sw = 0
-# the launch counters, read and restored together by a graph capture
-COUNTERS = ("launches", "launches_sw", "launches_reflw", "launches_reflw_sw")
-
-
-def reset_launches() -> None:
-    global launches, launches_sw, launches_reflw, launches_reflw_sw
-    launches = launches_sw = launches_reflw = launches_reflw_sw = 0
-
 
 def _inner_contiguous(x: torch.Tensor, rank: int) -> bool:
     """Whether the last ``rank`` dimensions of x (a member's slice) are
@@ -322,7 +311,6 @@ def launch_kernel(cfg, compute_sw: bool, ins: list, block: np.ndarray):
     state a SW step carries (tau2, stratc, tt_rsw, ssrd) holds all of that
     step's outputs until the next SW step, 105 rows of il x ix values per
     member at kx=8 (110 MB at T170 in fp64)."""
-    global launches, launches_sw, launches_reflw, launches_reflw_sw
     dtype, device = ins[2].dtype, ins[2].device
     if device.type != "cuda":
         raise ValueError(f"the column-physics kernel needs CUDA tensors, "
@@ -362,10 +350,13 @@ def launch_kernel(cfg, compute_sw: bool, ins: list, block: np.ndarray):
     if err != 0:
         raise RuntimeError(f"column_physics kernel launch failed: CUDA "
                            f"error {err}")
-    launches += 1
-    launches_sw += int(compute_sw)
-    launches_reflw += int(sig.reflw)
-    launches_reflw_sw += int(sig.reflw and compute_sw)
+    tracing.count("k1.launches")
+    if compute_sw:
+        tracing.count("k1.launches_sw")
+    if sig.reflw:
+        tracing.count("k1.launches_reflw")
+        if compute_sw:
+            tracing.count("k1.launches_reflw_sw")
     return outs
 
 

@@ -36,6 +36,7 @@ import torch
 
 from ...constants import REARTH
 from ...ops import spectral as sp
+from ...utils import tracing
 
 TIME_DECORR = 6.0        # decorrelation time (h)
 LEN_DECORR = 500000.0    # decorrelation length (m)
@@ -133,7 +134,10 @@ def draw_day(generator, noise: Noise, out: torch.Tensor):
     generator(s) advanced past the whole day (copies; the given ones are
     left as they were). The draws are enqueued on the current stream;
     ``noise`` sources' values reach the device in one copy from pinned
-    memory, without a host synchronisation."""
+    memory, without a host synchronisation. The ``normal_`` calls count
+    as ``sppt.draw_launches`` (utils/tracing.py), one event a step, so a
+    reader can tell the host's own time a step from a step it spent
+    blocked behind earlier work on a full launch queue."""
     shape = tuple(out.shape[1:])
     per_member = isinstance(generator, tuple) and not callable(noise)
     if noise is None:
@@ -145,6 +149,8 @@ def draw_day(generator, noise: Noise, out: torch.Tensor):
                     out[i, m].normal_(generator=g)
             else:
                 out[i].normal_(generator=gens)
+            tracing.count("sppt.draw_launches",
+                          len(gens) if per_member else 1)
         generator = gens
     else:
         if per_member and len(noise) != len(generator):

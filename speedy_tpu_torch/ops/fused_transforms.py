@@ -27,8 +27,9 @@ On CPU tensors both functions run their plain twin, the einsum chain of
 they launch the kernel or raise. fp32 accumulates in fp32; fp64 in fp64
 (the Pallas kernels' fp32 scratch is an artefact of a chip without fp64),
 so the fp64 kernels agree with the einsum chain to rounding.
-``launches_syn``/``launches_ana`` count kernel launches. The model step
-keeps the einsum chain; ``speedy_tpu_torch.bench_transform`` runs these.
+Each launch is counted (utils/tracing.py): ``k2.launches_syn``,
+``k2.launches_ana``. The model step keeps the einsum chain;
+``speedy_tpu_torch.bench_transform`` runs these.
 """
 from __future__ import annotations
 
@@ -39,6 +40,7 @@ from typing import NamedTuple
 import torch
 
 from . import spectral as sp
+from ..utils import tracing
 
 SOURCES = ("spectral_transforms.cu",)
 MAX_SMEM_BYTES = 232448  # 227 KB, the most an H100 block may opt in to
@@ -79,15 +81,6 @@ ANA_TILES = {
     171: {4: (2, 8), 8: (1, 8)},    # T170
 }
 ANA_DEFAULT_TILES = (2, 4)
-
-launches_syn = 0
-launches_ana = 0
-
-
-def reset_launches() -> None:
-    global launches_syn, launches_ana
-    launches_syn = launches_ana = 0
-
 
 class AnaPlan(NamedTuple):
     fb: int      # fields per block
@@ -352,7 +345,6 @@ def launch_synthesis(sc: sp.SpectralConsts, spec: torch.Tensor, tiles=None
     """The synthesis kernel on the CUDA tensor spec [B, mx, nx, 2];
     ``tiles`` (FB, TJ) or (FB, TJ, TI) overrides the pick for the preset,
     type and batch (the benchmark's sweep)."""
-    global launches_syn
     mx, nx, il = sc.cpol_inv.shape
     if spec.dim() != 4 or tuple(spec.shape[1:]) != (mx, nx, 2):
         raise ValueError(f"spec shape {tuple(spec.shape)}, expected "
@@ -373,7 +365,7 @@ def launch_synthesis(sc: sp.SpectralConsts, spec: torch.Tensor, tiles=None
                  sc.cpol_inv.data_ptr(), sc.dft_syn.data_ptr(),
                  extent.data_ptr(), out.data_ptr(), stream)
     _raise_on(err, "synthesis")
-    launches_syn += 1
+    tracing.count("k2.launches_syn")
     return out
 
 
@@ -381,7 +373,6 @@ def launch_analysis(sc: sp.SpectralConsts, grid: torch.Tensor, tiles=None
                     ) -> torch.Tensor:
     """The analysis kernel on the CUDA tensor grid [B, il, ix]; ``tiles``
     (FB, TM) overrides the preset's pick (the benchmark's sweep)."""
-    global launches_ana
     mx, nx, il = sc.cpol_dir.shape
     ix = sc.dft_ana.shape[-1]
     if grid.dim() != 3 or tuple(grid.shape[1:]) != (il, ix):
@@ -403,7 +394,7 @@ def launch_analysis(sc: sp.SpectralConsts, grid: torch.Tensor, tiles=None
                  sc.dft_ana.data_ptr(), sc.cpol_dir.data_ptr(),
                  extent.data_ptr(), out.data_ptr(), stream)
     _raise_on(err, "analysis")
-    launches_ana += 1
+    tracing.count("k2.launches_ana")
     return out
 
 

@@ -33,6 +33,7 @@ import torch.distributed as dist
 from ..config import ModelConfig
 from ..constants import REARTH, PI_F
 from ..geometry import to_device
+from ..utils import tracing
 
 
 class SpectralConsts(NamedTuple):
@@ -256,18 +257,14 @@ def legendre_dir(sc: SpectralConsts, fm: torch.Tensor) -> torch.Tensor:
     return out
 
 
-# all-reduces made by sum_over (a captured day's are counted at capture)
-allreduces = 0
-
-
 def sum_over(x: torch.Tensor, group) -> torch.Tensor:
     """x summed over the ranks of ``group`` (one all-reduce; every rank
     gets the same sum), made contiguous first. Under NCCL, or Gloo on CPU
     tensors, in place; Gloo with CUDA tensors (ranks that share a GPU,
     whose days run eagerly) stages the sum through a host copy, a marked
-    synchronisation (models/captured.py ``host_sync``)."""
-    global allreduces
-    allreduces += 1
+    synchronisation (models/captured.py ``host_sync``). Counted as
+    ``spectral.allreduces`` (utils/tracing.py)."""
+    tracing.count("spectral.allreduces")
     x = x.contiguous()
     if x.is_cuda and dist.get_backend(group) != "nccl":
         from ..models.captured import host_sync

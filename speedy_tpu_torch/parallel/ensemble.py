@@ -46,6 +46,7 @@ from ..models.model import (GRID_FIELDS, Model, ModelState, gridded_fields,
                             _to_host)
 from ..models.physics.sppt import Noise, init_sppt_state, stack_states
 from ..utils import calendar as cal
+from ..utils import tracing
 from ..utils.diagnostics import InstabilityError, bad_days
 
 
@@ -115,12 +116,14 @@ class Ensemble:
         """The members this rank holds."""
         return len(self.members)
 
+    @tracing.span("setup.boot")
     def initialize(self, start: cal.Datetime) -> ModelState:
         """The model's booted state on every member; with SPPT, then each
         member's own stationary AR(1) state and generator. As in the JAX
         package, the boot uses the model's own SPPT seed, and the members'
         SPPT states replace the booted one afterwards, so they have not
-        been advanced by the boot."""
+        been advanced by the boot. Its ``setup.boot`` span holds the
+        model's (utils/tracing.py)."""
         model, cfg = self.model, self.model.cfg
         state = band_state(model.initialize(start), self.rows)
         if cfg.sst_anomaly_forcing and self.band is not model:
@@ -134,6 +137,7 @@ class Ensemble:
                 for g, src in zip(self.members, sources)]))
         return estate
 
+    @tracing.span("call.run_days")
     def run_days(self, estate: ModelState, start: cal.Datetime, n_days: int,
                  output_writers=None, model_step: int = 0,
                  after_day=None) -> Tuple[ModelState, cal.Datetime]:
@@ -151,6 +155,8 @@ class Ensemble:
         on each day's extrema, per member, once per chunk of days, as in
         Model.run_fast (``guard``, reduced over the ranks of a mesh).
         ``after_day(i)`` runs after day i's replay (and its output).
+        Spans (utils/tracing.py): ``call.run_days`` around the call,
+        ``day.write`` around a day's writer calls, and Model.run_staged's.
         """
         model, cfg = self.band, self.model.cfg
         collect = output_writers is not None
@@ -162,8 +168,10 @@ class Ensemble:
                 g0 = self._gather_rows(_to_host(gridded_fields(
                     cfg, model.mc, estate.prog)))
                 if self.writes:
-                    for m, w in enumerate(output_writers):
-                        w(0, start, start, {k: v[m] for k, v in g0.items()})
+                    with tracing.span("day.write"):
+                        for m, w in enumerate(output_writers):
+                            w(0, start, start,
+                              {k: v[m] for k, v in g0.items()})
         cd = model.captured_day(estate, collect_output=collect,
                                  grids=collect)
         cd.load(estate)
@@ -174,12 +182,13 @@ class Ensemble:
             grids = self._gather_rows(cd.outputs())
             if not self.writes:
                 return
-            for i in range(cfg.nsteps):
-                date = cal.newdate(date, cfg.nsteps)
-                step = model_step + day * cfg.nsteps + i + 1
-                for m, w in enumerate(output_writers):
-                    w(step, date, start,
-                      {k: grids[k][i, m] for k in GRID_FIELDS})
+            with tracing.span("day.write"):
+                for i in range(cfg.nsteps):
+                    date = cal.newdate(date, cfg.nsteps)
+                    step = model_step + day * cfg.nsteps + i + 1
+                    for m, w in enumerate(output_writers):
+                        w(step, date, start,
+                          {k: grids[k][i, m] for k in GRID_FIELDS})
 
         def day_done(day: int) -> None:
             if collect:

@@ -175,7 +175,7 @@ def with_anomaly(bc: dict, ssta: np.ndarray) -> dict:
 
 def main(argv=None) -> int:
     from .models.model import Model
-    from .models.physics import fused
+    from .utils import tracing
     ap = argparse.ArgumentParser(prog="python -m speedy_tpu_torch."
                                       "run_multiyear")
     ap.add_argument("--years", type=int, default=6)
@@ -188,7 +188,7 @@ def main(argv=None) -> int:
     bc = boundary_kwargs(args)
     cfg = from_preset(args.preset, precision="fp32")
     model = Model(cfg, device=args.device, **bc)
-    fused.reset_launches()
+    tracing.reset()
     t0 = time.time()
     print(f"control run: {args.years} years {args.preset}L{cfg.kx}")
     ends = []       # the host clock at each month's end (after its copy)
@@ -244,8 +244,9 @@ def main(argv=None) -> int:
             "dt_sfc_nino_K": float(((e["t"][kx - 1] - c["t"][kx - 1])
                                     * w).sum())}))
     print(f"{n_months} months, {copies} host copies of the accumulating "
-          f"days, column-physics kernel launches {fused.launches} "
-          f"(sw {fused.launches_sw}) on {model.device}")
+          f"days, column-physics kernel launches "
+          f"{tracing.counters['k1.launches']} "
+          f"(sw {tracing.counters['k1.launches_sw']}) on {model.device}")
     return 0
 
 

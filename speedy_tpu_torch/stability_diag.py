@@ -124,8 +124,8 @@ def main(argv=None) -> int:
 def _diagnose(args, cfg, model) -> int:
     """The chunks of days of ``main`` with their spectra and guard rows,
     the npz and the JSON lines."""
-    from .models.physics import fused
-    fused.reset_launches()
+    from .utils import tracing
+    tracing.reset()
     state = model.initialize(START)
     cd = model.captured_day(state)
     cd.load(state)
@@ -179,8 +179,8 @@ def _diagnose(args, cfg, model) -> int:
         rob=cfg.rob, thd=cfg.thd, thdd=cfg.thdd,
         thds=cfg.thds, nsteps=cfg.nsteps, out=args.out,
         wall_s=time.time() - t0)))
-    print(f"column-physics kernel launches {fused.launches} "
-          f"(sw {fused.launches_sw}) on {model.device}")
+    print(f"column-physics kernel launches {tracing.counters['k1.launches']} "
+          f"(sw {tracing.counters['k1.launches_sw']}) on {model.device}")
     return 0
 
 

@@ -61,6 +61,7 @@ from speedy_tpu_torch.ops import spectral as sp
 from speedy_tpu_torch.parallel.ensemble import Ensemble
 from speedy_tpu_torch.utils import calendar as cal
 from speedy_tpu_torch.utils.synthetic_bc import synthetic_boundaries
+from speedy_tpu_torch.utils.tracing import counters, reset
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 START = cal.Datetime(1982, 1, 1)
@@ -149,10 +150,10 @@ def test_reference_lw_kernel_refuses_bad_input(smoke, bc, case):
         ins[24] = ins[24].cpu()
     else:
         ins.pop()
-    fused.reset_launches()
+    reset()
     with pytest.raises(ValueError):
         fused.launch_kernel(m.cfg, False, ins, block)
-    assert fused.launches == fused.launches_reflw == 0
+    assert counters["k1.launches"] == counters["k1.launches_reflw"] == 0
 
 
 def test_reference_lw_main_path_launches(smoke, bc):
@@ -160,11 +161,13 @@ def test_reference_lw_main_path_launches(smoke, bc):
     boot and in each replayed day."""
     m = Model(t30(lw_band_vectorized=False), device="cuda", bc_arrays=bc)
     smoke.capture_day(m, m.initialize(START), START)
-    fused.reset_launches()
+    reset()
     m.run_fast(START, 1)
     nsteps, nstrad = m.cfg.nsteps, m.cfg.nstrad
-    assert fused.launches == fused.launches_reflw == 2 + nsteps
-    assert fused.launches_sw == fused.launches_reflw_sw == 2 + nsteps // nstrad
+    assert counters["k1.launches"] == counters["k1.launches_reflw"] \
+        == 2 + nsteps
+    assert counters["k1.launches_sw"] == counters["k1.launches_reflw_sw"] \
+        == 2 + nsteps // nstrad
 
 
 def test_sst_anomaly_replay_across_month_start(smoke):
@@ -182,10 +185,10 @@ def test_t85_day_launches_once_per_step(smoke, bc):
     m = Model(from_preset("t85"), device="cuda", bc_arrays=bc)
     state = m.initialize(START)
     smoke.capture_day(m, state, START)
-    fused.reset_launches()
+    reset()
     out = m.run_fast(START, 1, state=state)
-    assert fused.launches == m.cfg.nsteps == 96
-    assert fused.launches_sw == m.cfg.nsteps // m.cfg.nstrad
+    assert counters["k1.launches"] == m.cfg.nsteps == 96
+    assert counters["k1.launches_sw"] == m.cfg.nsteps // m.cfg.nstrad
     assert bool(torch.isfinite(out.prog.vor).all())
 
 
@@ -223,10 +226,10 @@ def test_k1_refuses_bad_input(smoke, bc, case):
         ins[6] = ins[6].cpu()
     else:
         ins.append(ins[5])
-    fused.reset_launches()
+    reset()
     with pytest.raises(ValueError):
         fused.launch_kernel(m.cfg, True, ins, block)
-    assert fused.launches == 0
+    assert counters["k1.launches"] == 0
 
 
 def spectral_case(preset, precision, batch):
@@ -254,13 +257,14 @@ TRANSFORM_CASES = (
 def test_transform_kernels_match_einsum(smoke, preset, batch, precision):
     cfg, sc, spec, grid = spectral_case(preset, precision, batch)
     bound = smoke.TRANSFORM_BOUND[cfg.rdtype]
-    ft.reset_launches()
+    reset()
     for kernel, plain, x in ((ft.fused_spec_to_grid, sp.spec_to_grid, spec),
                              (ft.fused_grid_to_spec, sp.grid_to_spec, grid)):
         out = kernel(sc, x)
         (err, _), = smoke.field_errors([out], [plain(sc, x)])
         assert err <= bound, (kernel.__name__, err)
-    assert ft.launches_syn == 1 and ft.launches_ana == 1
+    assert counters["k2.launches_syn"] == 1
+    assert counters["k2.launches_ana"] == 1
     # the pairs the truncation drops are not computed: exactly 0
     dropped = (torch.arange(cfg.nx, device="cuda")
                >= ft.truncation_extent(sc.cpol_dir).cuda()[:, None])
@@ -274,7 +278,7 @@ FUSED = {"syn": ft.fused_spec_to_grid, "ana": ft.fused_grid_to_spec}
 
 
 def launches(direction):
-    return ft.launches_syn if direction == "syn" else ft.launches_ana
+    return counters["k2.launches_" + direction]
 
 
 @pytest.mark.parametrize(
@@ -327,7 +331,7 @@ def test_refuses_bad_input(smoke, direction, case):
         x = x.transpose(0, 1).contiguous().transpose(0, 1)
     else:
         x = x.cpu()
-    ft.reset_launches()
+    reset()
     with pytest.raises(ValueError):
         LAUNCH[direction](sc, x)
     assert launches(direction) == 0
@@ -337,12 +341,12 @@ def test_refuses_bad_input(smoke, direction, case):
 def test_counts_launches(smoke, direction):
     _, sc, spec, grid = spectral_case("t30", "fp32", 25)
     x = spec if direction == "syn" else grid
-    ft.reset_launches()
+    reset()
     for n in range(1, 4):
         FUSED[direction](sc, x)
         assert launches(direction) == n
     FUSED[direction](sc, x[:0])   # nothing to launch
-    assert ft.launches_syn + ft.launches_ana == 3
+    assert counters["k2.launches_syn"] + counters["k2.launches_ana"] == 3
 
 
 @pytest.mark.parametrize("preset", ["t30", "t85", "t170"])
@@ -389,10 +393,10 @@ def test_cuda_steps_match_cpu(smoke, bc, sppt_on):
 def test_main_path_goes_through_kernel(smoke, bc):
     m = Model(t30(), device="cuda", bc_arrays=bc)
     smoke.capture_day(m, m.initialize(START), START)
-    fused.reset_launches()
+    reset()
     m.run_fast(START, 1)
-    assert fused.launches == 2 + m.cfg.nsteps
-    assert fused.launches_sw == 2 + m.cfg.nsteps // m.cfg.nstrad
+    assert counters["k1.launches"] == 2 + m.cfg.nsteps
+    assert counters["k1.launches_sw"] == 2 + m.cfg.nsteps // m.cfg.nstrad
 
 
 @pytest.mark.parametrize("members", bp.MEMBER_COUNTS)
@@ -418,10 +422,10 @@ def test_k1_refuses_bad_member_input(smoke, bc, case):
             .transpose(2, 3)
     else:
         ins[13] = ins[13][:-1]
-    fused.reset_launches()
+    reset()
     with pytest.raises(ValueError):
         fused.launch_kernel(m.cfg, True, ins, block)
-    assert fused.launches == 0
+    assert counters["k1.launches"] == 0
 
 
 def test_ensemble_cuda_matches_cpu(smoke, bc):
@@ -450,10 +454,10 @@ def test_ensemble_day_launches_once_per_step(smoke, bc, members):
     ens = Ensemble(m, members)
     estate = ens.initialize(START)
     smoke.capture_day(m, estate, START)
-    fused.reset_launches()
+    reset()
     estate, _ = ens.run_days(estate, START, 1)
-    assert fused.launches == m.cfg.nsteps
-    assert fused.launches_sw == m.cfg.nsteps // m.cfg.nstrad
+    assert counters["k1.launches"] == m.cfg.nsteps
+    assert counters["k1.launches_sw"] == m.cfg.nsteps // m.cfg.nstrad
     assert bool(torch.isfinite(estate.prog.vor).all())
 
 
@@ -492,10 +496,12 @@ def test_replayed_day_holds_the_k1_launches(smoke, bc):
     m = Model(t30(), device="cuda", bc_arrays=bc)
     cd, _, _ = smoke.capture_day(m, m.initialize(START), START)
     nsteps, n_sw = m.cfg.nsteps, m.cfg.nsteps // m.cfg.nstrad
-    assert (cd.k1_launches, cd.k1_launches_sw) == (nsteps, n_sw)
-    fused.reset_launches()
+    assert (cd.counts["k1.launches"], cd.counts["k1.launches_sw"]) \
+        == (nsteps, n_sw)
+    reset()
     assert smoke.k1_in_trace(lambda: cd.advance(0))[:2] == (nsteps, n_sw)
-    assert (fused.launches, fused.launches_sw) == (nsteps, n_sw)
+    assert (counters["k1.launches"], counters["k1.launches_sw"]) \
+        == (nsteps, n_sw)
 
 
 @pytest.mark.parametrize("members", [None, 2])

@@ -28,10 +28,10 @@ from speedy_tpu.utils import calendar as jcal
 from speedy_tpu_torch import convert
 from speedy_tpu_torch.config import t30
 from speedy_tpu_torch.models.model import Model
-from speedy_tpu_torch.models.physics import fused
 from speedy_tpu_torch.utils import calendar as cal
 from speedy_tpu_torch.utils.synthetic_bc import (synthetic_boundaries,
                                                  write_boundary_files)
+from speedy_tpu_torch.utils.tracing import counters, reset
 
 BOUND = 1e-10
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -137,12 +137,12 @@ def test_convert_round_trip(runs):
 
 
 def test_cpu_run_launches_no_kernel(bc):
-    fused.reset_launches()
+    reset()
     m = Model(t30(**CONFIGS["t21_kx5"]), device="cpu", bc_arrays=bc)
     start = cal.Datetime(*START)
     s = m.initialize(start)
     m.one_step(s, m.daily_forcing(s, start, start), True)
-    assert fused.launches == 0
+    assert counters["k1.launches"] == 0
 
 
 def test_package_imports_no_jax():

@@ -25,6 +25,7 @@ from speedy_tpu_torch.config import PRESETS, from_preset, t30
 from speedy_tpu_torch.models import physics as tphys
 from speedy_tpu_torch.models.model import Model
 from speedy_tpu_torch.models.physics import fused
+from speedy_tpu_torch.utils.tracing import counters, reset
 from speedy_tpu_torch.utils.synthetic_bc import (synthetic_boundaries,
                                                  write_boundary_files)
 from torch_parity import mismatch_report
@@ -168,7 +169,7 @@ def test_wrapper_cpu_path_is_plain_chain(setup, outputs):
     trad = tphys.RadiationState(*[t(x) for x in js.rad])
     from speedy_tpu_torch.models.tendencies import PhysicsGridState
     tpg = PhysicsGridState(*[t(x) for x in pg[:6]])
-    fused.reset_launches()
+    reset()
     for sw in (True, False):
         out = flat(fused.fused_grid_physics(tm.cfg, tm.pp, sw, tdaily, tsurf,
                                             trad, tpg))
@@ -176,7 +177,7 @@ def test_wrapper_cpu_path_is_plain_chain(setup, outputs):
         for name, a, b in zip(NAMES, out, ref):
             assert torch.equal(a, b), mismatch_report(
                 outputs["inputs", "booted", sw], NAMES, out, ref)
-    assert fused.launches == 0 and fused.launches_sw == 0
+    assert counters["k1.launches"] == 0 and counters["k1.launches_sw"] == 0
 
 
 @pytest.mark.parametrize("threads", [1, 2, 4])
@@ -224,7 +225,7 @@ def test_wrapper_rejects_cpu_launch(setup):
     ins = [torch.zeros(1, dtype=torch.float64)] * fused.N_IN_SW
     with pytest.raises(ValueError, match="CUDA"):
         fused.launch_kernel(tm.cfg, True, ins, fused.argument_block(tm.pp))
-    assert fused.launches == 0
+    assert counters["k1.launches"] == 0
 
 
 STATIC_SMEM_BYTES = 48 * 1024  # a block's shared memory without an opt-in

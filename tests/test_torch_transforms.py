@@ -33,6 +33,7 @@ from speedy_tpu_torch import config as tconfig
 from speedy_tpu_torch.geometry import build_geometry_np
 from speedy_tpu_torch.ops import fused_transforms as ft
 from speedy_tpu_torch.ops import spectral as tsp
+from speedy_tpu_torch.utils.tracing import counters, reset
 
 BOUND = 1e-12
 
@@ -92,12 +93,13 @@ def test_matches_jax_einsum_fp64(preset, batch):
 
 def test_cpu_path_launches_nothing():
     cfg, _, tsc = consts("t30", "fp64")
-    ft.reset_launches()
+    reset()
     ft.fused_spec_to_grid(tsc, torch.zeros(2, cfg.mx, cfg.nx, 2,
                                            dtype=torch.float64))
     ft.fused_grid_to_spec(tsc, torch.zeros(2, cfg.il, cfg.ix,
                                            dtype=torch.float64))
-    assert ft.launches_syn == 0 and ft.launches_ana == 0
+    assert counters["k2.launches_syn"] == 0
+    assert counters["k2.launches_ana"] == 0
 
 
 @pytest.mark.parametrize("direction", ["syn", "ana"])

@@ -46,14 +46,13 @@ from speedy_tpu_torch.convert import (band_state, gather_members,
                                       model_state_from_numpy,
                                       model_state_to_numpy)
 from speedy_tpu_torch.models.model import Model, one_step
-from speedy_tpu_torch.models.physics import fused
-from speedy_tpu_torch.ops import spectral
 from speedy_tpu_torch.parallel.ensemble import Ensemble, broadcast_state
 from speedy_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
 from speedy_tpu_torch.utils import calendar as cal
 from speedy_tpu_torch.utils.diagnostics import InstabilityError
 from speedy_tpu_torch.utils.output import NetCDFWriter
 from speedy_tpu_torch.utils.synthetic_bc import synthetic_boundaries
+from speedy_tpu_torch.utils.tracing import counters, reset
 
 GRIDS = {"t21": ("t30", dict(trunc=21, ix=64, il=32, kx=5)),
          "t30": ("t30", {}), "t85": ("t85", {}), "t170": ("t170", {})}
@@ -101,8 +100,7 @@ def main(argv) -> int:
         model = Model(cfg, device=mesh.device,
                       bc_arrays=synthetic_boundaries(0))
         ens = Ensemble(model, args.members, base_seed=args.seed, mesh=mesh)
-        fused.reset_launches()
-        spectral.allreduces = 0
+        reset()
         captured = None
         if args.state is not None:
             with np.load(args.state) as z:
@@ -135,9 +133,10 @@ def main(argv) -> int:
         sync()
         seconds = time.perf_counter() - t0
         with open(out(f"run{rank}.json"), "w") as f:
-            json.dump(dict(seconds=seconds, launches=fused.launches,
-                           launches_sw=fused.launches_sw,
-                           allreduces=spectral.allreduces,
+            json.dump(dict(seconds=seconds,
+                           launches=counters["k1.launches"],
+                           launches_sw=counters["k1.launches_sw"],
+                           allreduces=counters["spectral.allreduces"],
                            captured=captured), f)
         if args.writers:
             fields = ens.member_fields(estate, ens.members.start)
