@@ -57,7 +57,7 @@ from __future__ import annotations
 import contextlib
 import gc
 from collections import Counter
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -371,12 +371,26 @@ class CapturedDay:
         return (_views(flat[:size], self.acc_shapes),
                 flat[size:].reshape((n,) + tuple(self.guard.shape)))
 
-    def outputs(self) -> Dict[str, np.ndarray]:
+    def outputs(self, steps: Optional[Sequence[int]] = None
+                ) -> Dict[str, np.ndarray]:
         """The last day's outputs (the output variants) in one host copy:
         every step's diagnostics (reke, deke, tmean [nsteps, ..., kx]) and,
         with ``grids``, gridded fields (u, v, t, q, phi [nsteps, ..., kx,
-        il, ix], ps [nsteps, ..., il, ix])."""
-        return _views(self._fetch(self.out_flat), self.out_shapes)
+        il, ix], ps [nsteps, ..., il, ix]). With ``steps`` (step indices of
+        the day), the gridded fields of those steps only, in that order
+        ([len(steps), ...]): gathered behind the diagnostics into one
+        buffer on the device, on the replays' stream, before the copy."""
+        if steps is None or not self.grids or \
+                list(steps) == list(range(self.cfg.nsteps)):
+            return _views(self._fetch(self.out_flat), self.out_shapes)
+        shapes = {f: self.out_shapes[f] for f in Diagnostics._fields}
+        n_diag = sum(int(np.prod(s)) for s in shapes.values())
+        grids = [k for k in self.out_shapes if k not in shapes]
+        shapes.update({k: (len(steps),) + self.out_shapes[k][1:]
+                       for k in grids})
+        parts = [self.out_flat[:n_diag]] + [self.out[k][i].reshape(-1)
+                                            for k in grids for i in steps]
+        return _views(self._fetch(torch.cat(parts)), shapes)
 
     def result(self):
         """The staged state as a new ModelState (a copy: the next replay

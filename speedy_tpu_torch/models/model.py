@@ -31,7 +31,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import os
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -244,6 +244,17 @@ def boot(cfg: ModelConfig, pp: PhysicsParams, lsp: coupling.LandSeaParams,
     prog, aux = first_step(cfg, mc.dyn, mc.dc, mc.ic_half, mc.ic_full,
                            state.prog, corr, phys)
     return state._replace(prog=prog, rad=aux.rad, sppt=sppt_state)
+
+
+def _step_dates(date: cal.Datetime, end: cal.Datetime, nsteps: int
+               ) -> List[cal.Datetime]:
+    """The date after each step of the day from ``date``, up to the first
+    that is not before ``end``."""
+    out = []
+    while len(out) < nsteps and date < end:
+        date = cal.newdate(date, nsteps)
+        out.append(date)
+    return out
 
 
 def _to_host(tensors: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
@@ -563,8 +574,10 @@ class Model:
         every ``nstdia`` steps (``verbose``), and
         ``output_writer(step, date, start, fields)`` called with the gridded
         fields (numpy) every ``nsteps_out`` steps and at step 0. The day's
-        diagnostics, and with a writer its fields, come to the host in one
-        copy per day; without a writer the replayed day makes no fields.
+        diagnostics, and with a writer the fields of the steps it writes,
+        come to the host in one copy per day (each day's arrays new); the
+        replayed day with a writer makes every step's fields on the device,
+        without one none.
 
         ``state``/``resume_date``/``model_step`` resume from a checkpoint
         (``restore``); ``checkpoint_every`` > 0 writes a checkpoint every
@@ -602,29 +615,37 @@ class Model:
         while date < end:
             if cfg.sst_anomaly_forcing and date.day == 1 and model_step > 0:
                 self.advance_anomaly_window(start, date)
+            dates = _step_dates(date, end, cfg.nsteps)
+            # the day's steps whose fields are written
+            written = [i for i in range(len(dates))
+                       if (model_step + i + 1) % cfg.nsteps_out == 0] \
+                if collect else []
             if cd is None:
                 state, day = self.checked_day(state, date, start, model_step,
                                               collect)
+                row = {i: i for i in written}
             else:
                 with tracing.span("day.dates"):
                     cd.set_days(self.make_ds_days(date, start, 1)[0])
                 cd.advance(0, self.sppt_noise)
-                day = cd.outputs()
+                day = cd.outputs(written)
+                row = {i: j for j, i in enumerate(written)}
+            if collect:   # the steps whose fields came to the host
+                tracing.count("output.grid_steps",
+                              cfg.nsteps if cd is None else len(written))
             with tracing.span("day.guard"):
-                for i in range(cfg.nsteps):
+                for i, date in enumerate(dates):
                     model_step += 1
-                    date = cal.newdate(date, cfg.nsteps)
                     diag_i = Diagnostics(*[day[f][i]
                                            for f in Diagnostics._fields])
                     if model_step % cfg.nstdia == 0 and verbose:
                         print(format_diagnostics(diag_i, model_step))
                     check_diagnostics(diag_i, model_step)
-                    if collect and model_step % cfg.nsteps_out == 0:
+                    if i in row:
                         with tracing.span("day.write"):
                             output_writer(model_step, date, start,
-                                          {k: day[k][i] for k in GRID_FIELDS})
-                    if not date < end:
-                        break
+                                          {k: day[k][row[i]]
+                                           for k in GRID_FIELDS})
             day_count += 1
             if checkpoint_every and checkpoint_dir and \
                     day_count % checkpoint_every == 0:

@@ -29,9 +29,10 @@ device-side counterpart as device work. The counters kept: ``k1.launches``,
 ``k1.launches_sw``, ``k1.launches_reflw``, ``k1.launches_reflw_sw``
 (models/physics/fused.py), ``k2.launches_syn``, ``k2.launches_ana``
 (ops/fused_transforms.py), ``spectral.allreduces`` (ops/spectral.py),
-``d2h.bytes`` (a staged day's host copies), ``sppt.draw_launches`` (the
-``normal_`` calls of the SPPT draws, an event a step) and
-``graph.captures``.
+``d2h.bytes`` (a staged day's host copies), ``output.grid_steps`` (the
+steps whose gridded fields ``Model.run`` brought to the host, an event a
+day), ``sppt.draw_launches`` (the ``normal_`` calls of the SPPT draws, an
+event a step) and ``graph.captures``.
 """
 from __future__ import annotations
 

@@ -35,6 +35,7 @@ from speedy_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from speedy_tpu_torch.utils.output import NetCDFWriter
 from speedy_tpu_torch.utils.synthetic_bc import (synthetic_boundaries,
                                                  write_boundary_files)
+from torch_run_checks import expected_calls, fetch_bytes, run_against_buffer
 
 SMALL = dict(precision="fp64", trunc=21, ix=64, il=32, kx=5)
 START = cal.Datetime(1982, 1, 1)
@@ -146,6 +147,56 @@ def test_run_output_and_diagnostics_cadence(bc, tmp_path, capsys):
     assert [int(line.split()[2]) for line in printed.splitlines()
             if line.startswith(" step =")] == [12, 24, 36]
     assert bool(torch.isfinite(end.prog.t).all())
+
+
+DAY1, DAY2 = cal.Datetime(1982, 1, 2), cal.Datetime(1982, 1, 3)
+# nsteps_out, then the run's start date, end, model_step and days
+WRITE_CASES = {
+    "every_step": (1, START, DAY1, 0, 1),
+    "every_9": (9, START, DAY1, 0, 1),
+    "daily": (36, START, DAY1, 0, 1),
+    "every_2_days": (72, START, DAY2, 0, 2),
+    "every_7": (7, START, DAY1, 0, 1),
+    "resumed_every_2_days": (72, DAY1, DAY2, 36, 1),
+    "end_inside_a_day": (4, START, cal.Datetime(1982, 1, 1, 10, 10), 0, 1),
+}
+
+
+@pytest.mark.parametrize("case", list(WRITE_CASES))
+def test_run_writes_the_buffered_fields(bc, case):
+    """Model.run brings to the host every step's diagnostics and only the
+    written steps' fields: each writer call receives exactly that step's
+    fields in the day's full buffer, at the cadence's steps and dates, and
+    output.grid_steps and d2h.bytes count the written steps."""
+    nsteps_out, date, end, step, days = WRITE_CASES[case]
+    m = Model(t30(sppt_on=True, nsteps_out=nsteps_out, **SMALL),
+              device="cpu", bc_arrays=bc)
+    assert m.cfg.nsteps == 36
+    calls, bad, counted = run_against_buffer(
+        m, m.initialize(START), START, end, date=date, model_step=step)
+    assert not bad
+    assert calls == expected_calls(m.cfg, date, end, step)
+    grid_steps = sum(s > 0 for s, _ in calls)
+    assert counted == {"output.grid_steps": grid_steps,
+                       "d2h.bytes": fetch_bytes(m.cfg, days, grid_steps)}
+
+
+def test_run_leaves_every_steps_fields_in_the_day_buffer(bc):
+    """After a day of Model.run with a writer at nsteps_out 36, the output
+    day's buffer still holds every step's fields and diagnostics (what a
+    caller reads through ``captured_day(...).outputs()``), equal to the
+    same day run eagerly by ``checked_day``."""
+    m = Model(t30(sppt_on=True, nsteps_out=36, **SMALL), device="cpu",
+              bc_arrays=bc)
+    booted = m.initialize(START)
+    m.run(START, DAY1, output_writer=lambda *a: None, verbose=False,
+          state=booted)
+    day = m.captured_day(booted, collect_output=True, grids=True).outputs()
+    _, ref = m.checked_day(booted, START, START, 0, True)
+    assert set(day) == set(ref)
+    for k, v in ref.items():
+        assert v.shape[0] == m.cfg.nsteps
+        np.testing.assert_array_equal(day[k], v, err_msg=k)
 
 
 def test_run_equals_run_day(model, booted):

@@ -8,7 +8,8 @@ on the CPU.
   a stub body: CPU days are not captured), and the CLI's spans.json.
 * The run paths at T21L5 (the smallest grid of the port's tests): a
   ``Model.run`` of 2 days writes its day spans in order, and its
-  ``d2h.bytes`` a day are the day's output buffer; ``run_fast`` and
+  ``d2h.bytes`` a day are every step's diagnostics and the one written
+  step's fields (``output.grid_steps`` 1 a day); ``run_fast`` and
   ``Ensemble.run_days`` write one ``day.guard`` a chunk and one
   ``day.draw`` a day, and ``sppt.draw_launches`` counts nsteps x members a
   day.
@@ -169,11 +170,15 @@ def test_run_writes_its_day_spans_in_order(model, tmp_path):
     for e in sp[1:]:
         assert e.parent in ({run.seq} | guards)
         assert run.start <= e.start <= e.end <= run.end
-    # every step's fields and diagnostics, once a day
+    # every step's diagnostics and the written step's fields, once a day
     cd = model.captured_day(state, collect_output=True, grids=True)
-    per_day = cd.out_flat.numel() * cd.out_flat.element_size()
+    diag = sum(cd.out[f].numel() for f in ("reke", "deke", "tmean"))
+    grids = sum(cd.out[k][0].numel() for k in ("u", "v", "t", "q", "phi",
+                                               "ps"))
+    per_day = (diag + grids) * cd.out_flat.element_size()
     fetched = [e.n for e in ev if e.name == "d2h.bytes"]
     assert fetched == [per_day, per_day]
+    assert [e.n for e in ev if e.name == "output.grid_steps"] == [1, 1]
     assert sum(e.n for e in ev if e.name == "sppt.draw_launches") == \
         2 * model.cfg.nsteps
 
