@@ -11,10 +11,14 @@ So the reference does not follow the window.
 Once the window has closed, the driver runs the first day once more
 through the cell's timed entry (the captured day the window replayed, at
 its sizes and member count), from the perturbed booted state the window
-started from, and the reference (``reference/``, float64, eagerly, step
-by step) runs that day from the same state. The start, which this follows
-from, is checked on its own: the program's boot against the reference's
-from the same inputs. What is compared:
+started from, and the reference (float64, eagerly, step by step) runs
+that day from the same state. The reference is the configuration's: the
+package its file names (``"reference": "<dir>"``, found by name under the
+benchmark's directory as drivers and metrics are), or ``reference/``,
+SPEEDY's frozen plain day, where it names none (``harness.Cell.reference``);
+``reference/__init__.py`` says what such a package gives. The start, which
+this follows from, is checked on its own: the program's boot against the
+reference's from the same inputs. What is compared:
 
 - ``boot``: the booted prognostic state (of one member in an ensemble);
 - ``step<n>``: the gridded fields after each of the day's first steps, as
@@ -72,29 +76,27 @@ STEP = re.compile(r"step(\d+)(\.|$)")
 _models: Dict[tuple, object] = {}
 
 
-def _date(t):
-    from .reference.utils.calendar import Datetime
-    return Datetime(*t)
+def _date(run, t):
+    return run.cell.reference.Datetime(*t)
 
 
 def _start(run):
-    return _date(date_tuple(run.cell.params["start"]))
+    return _date(run, date_tuple(run.cell.params["start"]))
 
 
 def reference_model(run, precision: str = "fp64"):
     """The reference model of the run's configuration on its device, from
     the boundary arrays the benchmark gives the program: float64, or the
     control's (``tf32``: float32, its matrix products in TF32)."""
-    from .reference.config import ModelConfig
-    from .reference.models.model import ReferenceModel
     dtype = "fp32" if precision == "tf32" else precision
     key = (id(run), dtype)
     if key not in _models:
+        pkg = run.cell.reference
         stated = run.cell.model_config.get("precision", "fp32")
         kw = dict(run.cell.model_config, precision=dtype,
                   sppt_draws=stated)
-        _models[key] = ReferenceModel(
-            ModelConfig(**kw), run.device,
+        _models[key] = pkg.ReferenceModel(
+            pkg.ModelConfig(**kw), run.device,
             boundaries(run.cell.config["boundaries_seed"]))
     return _models[key]
 
@@ -127,19 +129,13 @@ def arrays(state) -> Dict[str, torch.Tensor]:
     return out
 
 
-def to_state(model, a: Dict[str, torch.Tensor], sppt=None):
-    """The reference's ModelState from ``arrays``, in the model's type and
-    on its device, with the SPPT state ``sppt`` (the reference's own)."""
-    from .reference.models.model import ModelState
-    from .reference.models.physics import SurfaceState
-    from .reference.models.physics.shortwave import RadiationState
-    from .reference.models.state import PrognosticState
-    dev, dtype = model.device, model.cfg.rdtype
-    get = lambda g, t: t(**{f: a[f"{g}.{f}"].to(dev, dtype)
-                            for f in t._fields})
-    return ModelState(prog=get("prog", PrognosticState),
-                      surf=get("surf", SurfaceState),
-                      rad=get("rad", RadiationState), sppt=sppt)
+def to_state(run, a: Dict[str, torch.Tensor], sppt=None,
+             precision: str = "fp64"):
+    """The reference's state from ``arrays``, in the type and on the
+    device of its model in ``precision``, with the SPPT state ``sppt``
+    (the reference's own)."""
+    return run.cell.reference.to_state(reference_model(run, precision), a,
+                                       sppt)
 
 
 def asked(run) -> Tuple[int, bool]:
@@ -199,16 +195,13 @@ def sppt_start(run, pair, precision: str = "fp64"):
     """The reference's own SPPT state at the window's start: the members'
     stationary states from their seeds (``sppt_seeds``), or one model's
     after the reference's boot; None without SPPT."""
-    ref = reference_model(run, precision)
-    if not ref.cfg.sppt_on:
+    if not run.cell.sppt:
         return None
     seeds = pair.get("sppt_seeds")
     if seeds is None:
         return booted(run, precision).sppt
-    from .reference.models.physics.sppt import (init_sppt_state,
-                                                stack_states)
-    return stack_states([init_sppt_state(ref.cfg, ref.pp.sppt_sigma, s)
-                         for s in seeds])
+    return run.cell.reference.sppt_start(reference_model(run, precision),
+                                         seeds)
 
 
 def first_day(run, start: Dict[str, torch.Tensor], pair, steps: int,
@@ -218,9 +211,10 @@ def first_day(run, start: Dict[str, torch.Tensor], pair, steps: int,
     at its end)."""
     ref = reference_model(run, precision)
     with torch.no_grad(), _TF32(precision == "tf32"):
-        state = to_state(ref, start, sppt_start(run, pair, precision))
-        return ref.run_day(state, _date(pair["date"]),
-                           _date(pair["run_start"]), steps)
+        state = to_state(run, start, sppt_start(run, pair, precision),
+                         precision)
+        return ref.run_day(state, _date(run, pair["date"]),
+                           _date(run, pair["run_start"]), steps)
 
 
 def fields(run, state, precision: str = "fp64") -> Dict[str, torch.Tensor]:
@@ -233,9 +227,7 @@ def fields(run, state, precision: str = "fp64") -> Dict[str, torch.Tensor]:
 
 def read_checkpoint(run, path: str) -> Dict[str, torch.Tensor]:
     """A checkpoint's state leaves, read by the reference's own loader."""
-    from .reference.utils.checkpoint import load_checkpoint
-    state, _, _, _ = load_checkpoint(path, booted(run))
-    return arrays(state)
+    return arrays(run.cell.reference.load_checkpoint(path, booted(run))[0])
 
 
 def read_netcdf(path: str) -> Dict[str, torch.Tensor]:
@@ -290,8 +282,8 @@ def judged(run, pair, control: bool) -> dict:
                else arrays(booted(run, "tf32")), end=arrays(end),
                steps=[fields(run, s, "tf32") for s in firsts])
     if pair["kind"] == "files":
-        ref = reference_model(run, "tf32")
-        out["fields0"] = fields(run, to_state(ref, pair["start"]), "tf32")
+        out["fields0"] = fields(run, to_state(run, pair["start"],
+                                              precision="tf32"), "tf32")
         out["fields"] = fields(run, end, "tf32")
     return out
 
@@ -324,8 +316,7 @@ def evaluate(run, pair, control: bool = False) -> Dict[str, float]:
                      if k.startswith("prog.")}
     numbers["day.lp"] = leaf_errors(low(got["end"]), low(ref_end),
                                     low(start), members, "x")["x.prog"]
-    ref = reference_model(run)
-    f0 = fields(run, to_state(ref, start))
+    f0 = fields(run, to_state(run, start))
     for i, (g, r) in enumerate(zip(got["steps"], firsts)):
         numbers.update(field_errors(g, fields(run, r), f0, f"step{i + 1}",
                                     members))

@@ -9,7 +9,8 @@ DFT), and the column-physics kernel's byte count (``unique_bytes`` over
 ``member_inputs`` in bench_physics.py: inputs read once and outputs written
 once, an input all members share counted once) with its lower estimate of
 100 operations per level per column (``bound_ms``). The tables are the
-reference's own (reference/ops/spectral.py), built from the configuration.
+configuration's reference's own (its ``transform_tables``: for the default,
+reference/ops/spectral.py), built from the configuration's shapes.
 """
 from __future__ import annotations
 
@@ -23,25 +24,24 @@ K1_OPS_PER_LEVEL_COLUMN = 100.0
 
 
 @lru_cache(maxsize=8)
-def _nonzeros(trunc: int, ix: int, il: int, kx: int):
+def _nonzeros(package, trunc: int, ix: int, il: int, kx: int):
     """Nonzero entries of the synthesis and analysis tables (Legendre,
-    DFT) of the reference's spectral constants at this resolution."""
-    from .reference.config import ModelConfig
-    from .reference.geometry import build_geometry_np
-    from .reference.ops.spectral import build_spectral_np
-    cfg = ModelConfig(trunc=trunc, ix=ix, il=il, kx=kx, precision="fp64")
-    t = build_spectral_np(cfg, build_geometry_np(cfg))
-    nz = lambda a: int(np.count_nonzero(a))
-    return dict(syn=(nz(t["cpol_inv"]), nz(t["dft_syn"])),
-                ana=(nz(t["cpol_dir"]), nz(t["dft_ana"])))
+    DFT) of the spectral constants at this resolution, as the reference
+    package ``package`` builds them (None: this benchmark's
+    ``reference/``)."""
+    if package is None:
+        from . import reference as package
+    tables = package.transform_tables(trunc, ix, il, kx)
+    return {d: tuple(int(np.count_nonzero(a)) for a in tables[d])
+            for d in ("syn", "ana")}
 
 
 def transform_cost(direction: str, cfg, b: int, itemsize: int = 4):
     """(bytes, operations) of one ``direction`` ('syn' or 'ana') transform
     of ``b`` fields: input and output moved once, the tables' nonzero
     entries read once; two operations per multiply-add."""
-    nnz_leg, nnz_dft = _nonzeros(cfg["trunc"], cfg["ix"], cfg["il"],
-                                 cfg["kx"])[direction]
+    nnz_leg, nnz_dft = _nonzeros(cfg.get("reference"), cfg["trunc"],
+                                 cfg["ix"], cfg["il"], cfg["kx"])[direction]
     mx, nx, il, ix = cfg["trunc"] + 1, cfg["trunc"] + 2, cfg["il"], cfg["ix"]
     nbytes = (b * (mx * nx * 2 + il * ix) + nnz_leg + nnz_dft) * itemsize
     return nbytes, 2 * b * (2 * nnz_leg + il * nnz_dft)

@@ -7,15 +7,19 @@ names (``configs/<config>.json``), the cell's run parameters in
 ``workloads/<cell>.json``, the entry point that the parameters' ``driver``
 names in ``drivers/<driver>.py``, and each metric's reader in
 ``metrics/<metric>.py`` (or, for a metric split by the end-to-end metric it
-moves, ``metrics/<name before the first dot>.py``). Adding a cell, a
-configuration or a metric adds files and entries; no file here changes.
+moves, ``metrics/<name before the first dot>.py``), and the plain
+reference the check follows in the package the configuration's file names
+(``"reference": "<dir>"``: ``<dir>/__init__.py``), or without that key
+``reference/`` (SPEEDY's frozen day; its ``__init__.py`` says what a
+reference package gives). Adding a cell, a configuration, a model with its
+reference or a metric adds files and entries; no file here changes.
 
 A run: the program is built, booted and perturbed from the seed, warmed
 up through one call of its entry (the warm-up day and the capture), then
 driven in whole calls of the cell's chunk until ``--seconds`` have passed,
 ending in a synchronise. With ``--trace 1`` a short sub-window is then
 profiled. Last, once the peak memory is read and the program is freed, the
-check: the plain reference (``reference/``) follows the program's own state
+check: the configuration's plain reference follows the program's own state
 through one day of the timed entry, and the comparison decides
 ``correct`` (check.py).
 """
@@ -30,6 +34,7 @@ import statistics
 import sys
 import time
 import traceback
+import zlib
 from typing import Any, Dict, List, Optional
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -98,6 +103,18 @@ class Cell:
         if self.params is None:
             raise FileNotFoundError(f"no workloads/{name}.json under "
                                     f"{paths}")
+        # the directory of the reference package the configuration names,
+        # or None for the default (``reference``)
+        self.reference_dir = None
+        ref = self.config.get("reference")
+        if ref is not None:
+            path = os.path.join(self.package_dir, str(ref))
+            if not str(ref).isidentifier() or not os.path.isfile(
+                    os.path.join(path, "__init__.py")):
+                raise FileNotFoundError(
+                    f"configuration {self.entry['config']!r} names the "
+                    f"reference {ref!r}: no package {path}")
+            self.reference_dir = path
         self.chips = int(self.entry["chips"])
         self.end_to_end = [x for x in m["end_to_end"]
                            if name in x.get("workloads", [name])]
@@ -115,6 +132,19 @@ class Cell:
         return bool(self.params.get("sppt", False))
 
     @property
+    def reference(self):
+        """The configuration's reference package: the one in
+        ``reference_dir``, or without it this benchmark's ``reference/``,
+        which a copy of the benchmark's directory need not hold."""
+        if self.reference_dir is None:
+            from . import reference
+            return reference
+        return load_file(
+            "benchmark_reference_%08x" % zlib.crc32(
+                self.reference_dir.encode()),
+            os.path.join(self.reference_dir, "__init__.py"), package=True)
+
+    @property
     def model_config(self) -> Dict[str, Any]:
         """The ModelConfig fields: the configuration file's ``model`` with
         the cell's overrides (SPPT, the output interval)."""
@@ -124,6 +154,27 @@ class Cell:
         return kw
 
 
+def load_file(modname: str, path: str, package: bool = False):
+    """The module in the file ``path``, loaded under the name ``modname``.
+    A package's ``__init__.py`` (``package``) is kept in sys.modules, so
+    that its relative imports resolve, and loaded once a process."""
+    if package and modname in sys.modules:
+        return sys.modules[modname]
+    spec = importlib.util.spec_from_file_location(
+        modname, path, submodule_search_locations=(
+            [os.path.dirname(path)] if package else None))
+    mod = importlib.util.module_from_spec(spec)
+    if package:
+        sys.modules[modname] = mod
+    try:
+        spec.loader.exec_module(mod)
+    except BaseException:
+        if package:
+            del sys.modules[modname]
+        raise
+    return mod
+
+
 def find_module(package_dir: str, kind: str, name: str):
     """The module ``<kind>/<name>.py`` under the benchmark's directory, or
     for a dotted name ``<kind>/<name before the first dot>.py``; None
@@ -131,11 +182,8 @@ def find_module(package_dir: str, kind: str, name: str):
     for stem in (name, name.split(".")[0]):
         path = os.path.join(package_dir, kind, stem + ".py")
         if os.path.exists(path):
-            modname = f"benchmark_{kind}_{stem.replace('.', '_')}"
-            spec = importlib.util.spec_from_file_location(modname, path)
-            mod = importlib.util.module_from_spec(spec)
-            spec.loader.exec_module(mod)
-            return mod
+            return load_file(f"benchmark_{kind}_{stem.replace('.', '_')}",
+                             path)
     return None
 
 
@@ -162,10 +210,11 @@ class Run:
         self.check_steps = 0
         self.check_other = False
 
-    # the configuration's shapes, as the counts read them
+    # the configuration's shapes, as the counts read them, and the
+    # reference package whose tables they count (``reference``)
     @property
-    def shapes(self) -> Dict[str, int]:
-        return self.cell.model_config
+    def shapes(self) -> Dict[str, Any]:
+        return dict(self.cell.model_config, reference=self.cell.reference)
 
     @property
     def members(self) -> int:

@@ -1,10 +1,12 @@
 """Nothing the benchmark runs on the chip imports JAX or the JAX package,
-and the plain reference imports nothing of the program either. Modules
-are compared by their top-level name, the part before the first dot,
-whole: the program's name begins with the JAX package's."""
+and no plain reference (``reference/``, and every package that a
+configuration names) imports anything of the program either. Modules are
+compared by their top-level name, the part before the first dot, whole:
+the program's name begins with the JAX package's."""
 from __future__ import annotations
 
 import ast
+import json
 import os
 
 import pytest
@@ -42,7 +44,18 @@ def test_no_jax(path):
     assert not set(top_level_imports(path)) & FORBIDDEN
 
 
-@pytest.mark.parametrize("path", sorted(sources("reference")),
+def references():
+    """The directories of every reference package: the default and each
+    one that a configuration's file names."""
+    dirs = {"reference"}
+    for c in harness.load_manifest()["configs"]:
+        with open(os.path.join(harness.ROOT, c["file"])) as f:
+            dirs.add(json.load(f).get("reference", "reference"))
+    return sorted(dirs)
+
+
+@pytest.mark.parametrize("path", sorted(p for d in references()
+                                        for p in sources(d)),
                          ids=lambda p: os.path.relpath(p, harness.HERE))
 def test_reference_imports_nothing_of_the_program(path):
     names = set(top_level_imports(path))

@@ -1,6 +1,7 @@
 """BENCHMARK.json against the benchmark's contract: names, units and
 lengths, the keys of each entry, the metrics each cell reports, and the
-files the harness finds by name."""
+files the harness finds by name, the configurations' reference packages
+among them."""
 from __future__ import annotations
 
 import json
@@ -21,6 +22,11 @@ KEYS = {"configs": {"name", "source", "file", "reduced", "why"},
         "end_to_end": {"name", "unit", "better", "bound", "source"},
         "per_layer": {"name", "unit", "better", "source", "layer", "moves"}}
 SOURCES = {"device_trace", "program_span", "program_counter", "host_clock"}
+# what a reference package gives the check and the counts
+REFERENCE = ("ModelConfig", "ReferenceModel", "to_state", "Datetime",
+             "load_checkpoint", "transform_tables")
+REFERENCE_MODEL = ("initial_state", "initialize", "run_day",
+                   "gridded_fields")
 
 
 @pytest.fixture(scope="module")
@@ -88,6 +94,31 @@ def test_configs(manifest):
         assert all(NAME.match(k) for k in c["reduced"])
     files = [c["file"] for c in manifest["configs"]]
     assert len(files) == len(set(files))
+
+
+def missing_interface(pkg, sppt: bool = False) -> list:
+    """The names of the interface (reference/__init__.py) that the
+    reference package ``pkg`` does not give, ``sppt_start`` too with
+    ``sppt``, ``ReferenceModel``'s methods as ``ReferenceModel.<name>``."""
+    names = REFERENCE + (("sppt_start",) if sppt else ())
+    out = [n for n in names if not hasattr(pkg, n)]
+    if "ReferenceModel" not in out:
+        out += [f"ReferenceModel.{m}" for m in REFERENCE_MODEL
+                if not callable(getattr(pkg.ReferenceModel, m, None))]
+    return out
+
+
+@pytest.mark.parametrize("config", [c["name"] for c in
+                                    harness.load_manifest()["configs"]])
+def test_reference_gives_the_interface(manifest, config):
+    """A configuration's ``reference`` names a package under the
+    benchmark's directory that gives what the check and the counts take
+    (``sppt_start`` too where a cell of it runs SPPT); without the key,
+    the default does."""
+    cells = [harness.Cell(w["name"], manifest) for w in manifest["workloads"]
+             if w["config"] == config]
+    pkg = cells[0].reference
+    assert missing_interface(pkg, any(c.sppt for c in cells)) == []
 
 
 def test_cells(manifest):

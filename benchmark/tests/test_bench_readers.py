@@ -41,6 +41,7 @@ class FakeCell:
         self.model_config = dict(trunc=30, ix=96, il=48, kx=8, nsteps=36,
                                  nstrad=3, precision="fp32")
         self.params = {}
+        self.reference = None
 
 
 def recorded_run(members=1, days=2, wall_day_s=0.0005):
