@@ -50,7 +50,8 @@ captured, which launches nothing, is taken back out of them and kept
 The day's spans (utils/tracing.py): ``capture.warmup`` and
 ``capture.graph``; in ``advance``, ``day.draw`` around the SPPT draws and
 ``day.replay`` around the replay (the eager day where there is no graph);
-``day.fetch`` around each host copy, whose bytes count as ``d2h.bytes``.
+``day.fetch`` around the wait for each host copy (``HostCopy``), whose
+bytes count as ``d2h.bytes``.
 """
 from __future__ import annotations
 
@@ -148,6 +149,33 @@ def _rebuild(template, tensors, generator):
                              sppt=sppt)
 
 
+class HostCopy:
+    """A copy of a tensor into new host memory (pinned on CUDA), enqueued
+    on the current stream without a host synchronisation: stream order
+    alone keeps a later day's writes to the source behind it. ``wait()``
+    waits for it (a marked synchronisation, the span ``day.fetch``) and
+    returns the host array, or with ``shapes`` its views of those shapes,
+    back to back. On the CPU the copy is made at once, since ``.cpu()``
+    of a CPU tensor would be the source itself."""
+
+    def __init__(self, tensor: torch.Tensor, shapes=None):
+        self.shapes = shapes
+        self.host = torch.empty(tensor.shape, dtype=tensor.dtype,
+                                pin_memory=tensor.is_cuda)
+        self.host.copy_(tensor, non_blocking=tensor.is_cuda)
+        self.event = None
+        if tensor.is_cuda:
+            self.event = torch.cuda.Event()
+            self.event.record()
+
+    def wait(self):
+        with tracing.span("day.fetch"), host_sync():
+            if self.event is not None:
+                self.event.synchronize()
+        flat = self.host.numpy()
+        return flat if self.shapes is None else _views(flat, self.shapes)
+
+
 class CapturedDay:
     """One simulated day of ``model`` for states shaped like ``template``
     (one model's, or an ensemble's with a leading member axis), with
@@ -157,7 +185,8 @@ class CapturedDay:
     docstring). Use: ``load(state)``, ``set_days(rows)``, then
     ``advance(d, noise)`` for each day d of the rows; ``guard_rows``,
     ``outputs``, ``accumulated`` and ``result`` read what the days left,
-    each in one host copy (counted in ``host_copies``). ``pool``: the
+    each in one host copy (counted in ``host_copies``; ``copy_outputs``
+    enqueues ``outputs``' copy without waiting). ``pool``: the
     graph memory pool to share (``torch.cuda.graph_pool_handle()``)."""
 
     def __init__(self, model, template, diag_every: int,
@@ -344,14 +373,16 @@ class CapturedDay:
         self.acc_flat.zero_()
 
     # ------------------------------------------------------------------
-    def _fetch(self, tensor: torch.Tensor) -> np.ndarray:
-        """A host copy of ``tensor`` (a copy on the CPU too, where
-        ``.cpu()`` would return the static buffer itself, which the next
-        day overwrites); its bytes count as ``d2h.bytes``."""
+    def _copy(self, tensor: torch.Tensor, shapes=None) -> HostCopy:
+        """``HostCopy(tensor, shapes)``, enqueued now; its bytes count as
+        ``d2h.bytes``."""
         self.host_copies += 1
         tracing.count("d2h.bytes", tensor.numel() * tensor.element_size())
-        with tracing.span("day.fetch"), host_sync():
-            return tensor.to("cpu", copy=True).numpy()
+        return HostCopy(tensor, shapes)
+
+    def _fetch(self, tensor: torch.Tensor) -> np.ndarray:
+        """A host copy of ``tensor``, waited for."""
+        return self._copy(tensor).wait()
 
     def guard_rows(self, n: int) -> np.ndarray:
         """The guard extrema of days 0..n-1 of the staged rows, [n, 4, ...,
@@ -378,11 +409,19 @@ class CapturedDay:
         with ``grids``, gridded fields (u, v, t, q, phi [nsteps, ..., kx,
         il, ix], ps [nsteps, ..., il, ix]). With ``steps`` (step indices of
         the day), the gridded fields of those steps only, in that order
-        ([len(steps), ...]): gathered behind the diagnostics into one
-        buffer on the device, on the replays' stream, before the copy."""
+        ([len(steps), ...])."""
+        return self.copy_outputs(steps).wait()
+
+    def copy_outputs(self, steps: Optional[Sequence[int]] = None
+                     ) -> HostCopy:
+        """``outputs(steps)`` enqueued on the replays' stream and not waited
+        for: with ``steps``, the fields of those steps are gathered behind
+        the diagnostics into a new buffer on the device, which later
+        replays do not touch, before the copy; the next day can be
+        enqueued before ``wait()``."""
         if steps is None or not self.grids or \
                 list(steps) == list(range(self.cfg.nsteps)):
-            return _views(self._fetch(self.out_flat), self.out_shapes)
+            return self._copy(self.out_flat, self.out_shapes)
         shapes = {f: self.out_shapes[f] for f in Diagnostics._fields}
         n_diag = sum(int(np.prod(s)) for s in shapes.values())
         grids = [k for k in self.out_shapes if k not in shapes]
@@ -390,7 +429,7 @@ class CapturedDay:
                        for k in grids})
         parts = [self.out_flat[:n_diag]] + [self.out[k][i].reshape(-1)
                                             for k in grids for i in steps]
-        return _views(self._fetch(torch.cat(parts)), shapes)
+        return self._copy(torch.cat(parts), shapes)
 
     def result(self):
         """The staged state as a new ModelState (a copy: the next replay

@@ -575,9 +575,28 @@ class Model:
         ``output_writer(step, date, start, fields)`` called with the gridded
         fields (numpy) every ``nsteps_out`` steps and at step 0. The day's
         diagnostics, and with a writer the fields of the steps it writes,
-        come to the host in one copy per day (each day's arrays new); the
-        replayed day with a writer makes every step's fields on the device,
-        without one none.
+        come to the host in one copy per day; the replayed day with a
+        writer makes every step's fields on the device, without one none.
+
+        The replayed days run one day ahead of the host: day d's replay
+        and its copy to the host are enqueued, and only then does the host
+        wait for day d-1's copy, check its steps, print and call the
+        writer, while day d runs on the device. Three rules keep this the
+        serial loop's result:
+
+        * a day that ends in a checkpoint, and the call's last day, are
+          checked, written and checkpointed before anything later is
+          enqueued, so a checkpoint (and the SST-anomaly window saved with
+          it) and the returned state are that day's end;
+        * the guard checks the steps in order and the writer is called in
+          order, so a step out of range raises InstabilityError naming it
+          after the writer calls for exactly the steps before it; the day
+          enqueued after it is never checked, written or returned;
+        * each day's arrays are new host memory: no later day overwrites
+          what the writer was given.
+
+        Past step 0's fields, the host waits only for each day's copy and
+        for a checkpoint.
 
         ``state``/``resume_date``/``model_step`` resume from a checkpoint
         (``restore``); ``checkpoint_every`` > 0 writes a checkpoint every
@@ -587,8 +606,9 @@ class Model:
 
         ``debug_nans`` (the counterpart of the JAX package's
         ``jax_debug_nans``, a debugging aid): the days run eagerly, step by
-        step (``checked_day``), and the first step that leaves a value
-        that is not finite raises FloatingPointError naming it.
+        step (``checked_day``), each checked and written before the next,
+        and the first step that leaves a value that is not finite raises
+        FloatingPointError naming it.
         """
         cfg = self.cfg
         if state is None:
@@ -611,7 +631,28 @@ class Model:
             cd = self.captured_day(state, collect_output=True, grids=collect)
             cd.load(state)
         current = lambda: state if cd is None else cd.result()
+
+        def finish(first, dates, fetch, row):
+            """The guard, printout and writer calls of a day whose steps
+            count on from ``first``: ``fetch()`` gives its outputs on the
+            host, ``row`` maps a written step to its row of the fields."""
+            day = fetch()
+            with tracing.span("day.guard"):
+                for i, date in enumerate(dates):
+                    step = first + i + 1
+                    diag_i = Diagnostics(*[day[f][i]
+                                           for f in Diagnostics._fields])
+                    if step % cfg.nstdia == 0 and verbose:
+                        print(format_diagnostics(diag_i, step))
+                    check_diagnostics(diag_i, step)
+                    if i in row:
+                        with tracing.span("day.write"):
+                            output_writer(step, date, start,
+                                          {k: day[k][row[i]]
+                                           for k in GRID_FIELDS})
+
         day_count = 0
+        ahead = None   # the day enqueued whose guard and writes are to run
         while date < end:
             if cfg.sst_anomaly_forcing and date.day == 1 and model_step > 0:
                 self.advance_anomaly_window(start, date)
@@ -621,34 +662,32 @@ class Model:
                        if (model_step + i + 1) % cfg.nsteps_out == 0] \
                 if collect else []
             if cd is None:
-                state, day = self.checked_day(state, date, start, model_step,
+                state, out = self.checked_day(state, date, start, model_step,
                                               collect)
-                row = {i: i for i in written}
+                day = (model_step, dates, lambda: out,
+                       {i: i for i in written})
             else:
                 with tracing.span("day.dates"):
                     cd.set_days(self.make_ds_days(date, start, 1)[0])
                 cd.advance(0, self.sppt_noise)
-                day = cd.outputs(written)
-                row = {i: j for j, i in enumerate(written)}
+                day = (model_step, dates, cd.copy_outputs(written).wait,
+                       {i: j for j, i in enumerate(written)})
             if collect:   # the steps whose fields came to the host
                 tracing.count("output.grid_steps",
                               cfg.nsteps if cd is None else len(written))
-            with tracing.span("day.guard"):
-                for i, date in enumerate(dates):
-                    model_step += 1
-                    diag_i = Diagnostics(*[day[f][i]
-                                           for f in Diagnostics._fields])
-                    if model_step % cfg.nstdia == 0 and verbose:
-                        print(format_diagnostics(diag_i, model_step))
-                    check_diagnostics(diag_i, model_step)
-                    if i in row:
-                        with tracing.span("day.write"):
-                            output_writer(model_step, date, start,
-                                          {k: day[k][row[i]]
-                                           for k in GRID_FIELDS})
+            model_step += len(dates)
+            date = dates[-1]
             day_count += 1
-            if checkpoint_every and checkpoint_dir and \
-                    day_count % checkpoint_every == 0:
+            if ahead is not None:   # the day before, while this one runs
+                tracing.count("run.days_ahead")
+                finish(*ahead)
+            ahead = day
+            checkpoint = checkpoint_every and checkpoint_dir and \
+                day_count % checkpoint_every == 0
+            if cd is None or checkpoint or not date < end:
+                finish(*ahead)
+                ahead = None
+            if checkpoint:
                 name = (f"ckpt_{date.year:04d}{date.month:02d}"
                         f"{date.day:02d}{date.hour:02d}{date.minute:02d}.npz")
                 with tracing.span("day.checkpoint"), host_sync():

@@ -31,8 +31,10 @@ device-side counterpart as device work. The counters kept: ``k1.launches``,
 (ops/fused_transforms.py), ``spectral.allreduces`` (ops/spectral.py),
 ``d2h.bytes`` (a staged day's host copies), ``output.grid_steps`` (the
 steps whose gridded fields ``Model.run`` brought to the host, an event a
-day), ``sppt.draw_launches`` (the ``normal_`` calls of the SPPT draws, an
-event a step) and ``graph.captures``.
+day), ``run.days_ahead`` (a day ``Model.run`` enqueued while the day
+before still had its guard and writer calls to run), ``sppt.draw_launches``
+(the ``normal_`` calls of the SPPT draws, an event a step) and
+``graph.captures``.
 """
 from __future__ import annotations
 

@@ -36,9 +36,11 @@ T170 (kx=8), its fp32 outputs not equal to the default order's, with 1
 and 8 members, its refusal of bad inputs, and the main path's launches
 counted as reference-order ones; an SST-anomaly run across a month start
 replayed against the eager days (torch.equal); one K1 launch a step of a
-replayed T85 day. Model.run with a writer at nsteps_out 36 and 9: each
-call's fields equal to the day's buffer of every step's fields, and the
-day's host copy only the written steps' fields and the diagnostics.
+replayed T85 day. Model.run with a writer at nsteps_out 36 and 9 over 3
+days, each enqueued before the day before is written: each call's fields
+equal to the day's buffer of every step's fields and never overwritten by
+a later day, and the day's host copy only the written steps' fields and
+the diagnostics.
 Model.run(debug_nans=True), the CLI's --debug-nans,
 against the replayed Model.run: the same state and written fields. The
 sp axis: K1 at latitude-band shapes against its plain chain, and two
@@ -541,24 +543,28 @@ def test_run_checkpoint_resume_equals_straight_run(smoke, bc, tmp_path):
 
 @pytest.mark.parametrize("nsteps_out", [36, 9])
 def test_run_writes_the_buffered_fields(smoke, bc, nsteps_out):
-    """Model.run with a writer over 2 replayed T30 fp32 days (SPPT on),
-    under the sync debug mode "error": each writer call receives exactly
-    that step's fields in the day's full buffer, at the cadence's steps and
-    dates; the day brings to the host every step's diagnostics and the
-    written steps' fields only (759,168 B a day at nsteps_out 36)."""
+    """Model.run with a writer over 3 replayed T30 fp32 days (SPPT on),
+    each day enqueued before the day before is checked and written, under
+    the sync debug mode "error": each writer call receives exactly that
+    step's fields in the day's full buffer, at the cadence's steps and
+    dates, and no later day overwrites them; the day brings to the host
+    every step's diagnostics and the written steps' fields only (759,168 B
+    a day at nsteps_out 36)."""
     m = Model(t30(precision="fp32", sppt_on=True, nsteps_out=nsteps_out),
               device="cuda", bc_arrays=bc)
-    day2 = cal.Datetime(1982, 1, 3)
+    day3 = cal.Datetime(1982, 1, 4)
     booted = m.initialize(START)
+    ahead = counters["run.days_ahead"]
     with smoke.sync_error():
-        calls, bad, counted = run_against_buffer(m, booted, START, day2)
+        calls, bad, counted = run_against_buffer(m, booted, START, day3)
     assert not bad
-    assert calls == expected_calls(m.cfg, START, day2)
-    grid_steps = 2 * m.cfg.nsteps // nsteps_out
+    assert calls == expected_calls(m.cfg, START, day3)
+    assert counters["run.days_ahead"] - ahead == 2
+    grid_steps = 3 * m.cfg.nsteps // nsteps_out
     assert counted == {"output.grid_steps": grid_steps,
-                       "d2h.bytes": fetch_bytes(m.cfg, 2, grid_steps)}
+                       "d2h.bytes": fetch_bytes(m.cfg, 3, grid_steps)}
     if nsteps_out == 36:
-        assert counted["d2h.bytes"] == 2 * 759_168
+        assert counted["d2h.bytes"] == 3 * 759_168
 
 
 @pytest.mark.parametrize("precision", ["fp64", "fp32"])

@@ -29,9 +29,13 @@ from speedy_tpu.utils import checkpoint as jckpt
 from speedy_tpu.utils.output import NetCDFWriter as JWriter
 from speedy_tpu_torch import convert
 from speedy_tpu_torch.config import t30
+from speedy_tpu_torch.models import model as model_module
 from speedy_tpu_torch.models.model import Model
 from speedy_tpu_torch.utils import calendar as cal
+from speedy_tpu_torch.utils import tracing
 from speedy_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+from speedy_tpu_torch.utils.diagnostics import (InstabilityError,
+                                                check_diagnostics)
 from speedy_tpu_torch.utils.output import NetCDFWriter
 from speedy_tpu_torch.utils.synthetic_bc import (synthetic_boundaries,
                                                  write_boundary_files)
@@ -40,6 +44,15 @@ from torch_run_checks import expected_calls, fetch_bytes, run_against_buffer
 SMALL = dict(precision="fp64", trunc=21, ix=64, il=32, kx=5)
 START = cal.Datetime(1982, 1, 1)
 FIELDS = ("u", "v", "t", "q", "phi", "ps")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: parallel test workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -149,12 +162,13 @@ def test_run_output_and_diagnostics_cadence(bc, tmp_path, capsys):
     assert bool(torch.isfinite(end.prog.t).all())
 
 
-DAY1, DAY2 = cal.Datetime(1982, 1, 2), cal.Datetime(1982, 1, 3)
+DAY1, DAY2, DAY3 = (cal.Datetime(1982, 1, d) for d in (2, 3, 4))
 # nsteps_out, then the run's start date, end, model_step and days
 WRITE_CASES = {
     "every_step": (1, START, DAY1, 0, 1),
     "every_9": (9, START, DAY1, 0, 1),
     "daily": (36, START, DAY1, 0, 1),
+    "daily_3_days": (36, START, DAY3, 0, 3),
     "every_2_days": (72, START, DAY2, 0, 2),
     "every_7": (7, START, DAY1, 0, 1),
     "resumed_every_2_days": (72, DAY1, DAY2, 36, 1),
@@ -181,32 +195,93 @@ def test_run_writes_the_buffered_fields(bc, case):
                        "d2h.bytes": fetch_bytes(m.cfg, days, grid_steps)}
 
 
-def test_run_leaves_every_steps_fields_in_the_day_buffer(bc):
-    """After a day of Model.run with a writer at nsteps_out 36, the output
-    day's buffer still holds every step's fields and diagnostics (what a
-    caller reads through ``captured_day(...).outputs()``), equal to the
-    same day run eagerly by ``checked_day``."""
+@pytest.mark.parametrize("days", [1, 3])
+def test_run_leaves_every_steps_fields_in_the_day_buffer(bc, days):
+    """After ``days`` days of Model.run with a writer at nsteps_out 36, the
+    output day's buffer still holds the last day's every step's fields and
+    diagnostics (what a caller reads through
+    ``captured_day(...).outputs()``), equal to the same day run eagerly by
+    ``checked_day``."""
     m = Model(t30(sppt_on=True, nsteps_out=36, **SMALL), device="cpu",
               bc_arrays=bc)
     booted = m.initialize(START)
-    m.run(START, DAY1, output_writer=lambda *a: None, verbose=False,
-          state=booted)
+    last = cal.Datetime(1982, 1, days)
+    before = m.run_fast(START, days - 1, state=booted) if days > 1 \
+        else booted
+    m.run(START, cal.next_day(last), output_writer=lambda *a: None,
+          verbose=False, state=booted)
     day = m.captured_day(booted, collect_output=True, grids=True).outputs()
-    _, ref = m.checked_day(booted, START, START, 0, True)
+    _, ref = m.checked_day(before, last, START, (days - 1) * m.cfg.nsteps,
+                           True)
     assert set(day) == set(ref)
     for k, v in ref.items():
         assert v.shape[0] == m.cfg.nsteps
         np.testing.assert_array_equal(day[k], v, err_msg=k)
 
 
-def test_run_equals_run_day(model, booted):
-    """Model.run over one day is one run_day from the booted state."""
-    day, _ = model.run_day(booted, START, START)
-    run = model.run(START, cal.next_day(START), state=booted,
-                    verbose=False)
+@pytest.mark.parametrize("days", [1, 3])
+def test_run_equals_run_day(model, booted, days):
+    """Model.run over ``days`` days, each day from the second on enqueued
+    before the day before is checked, is that many run_days from the
+    booted state."""
+    day, date = booted, START
+    for _ in range(days):
+        day, _ = model.run_day(day, date, START)
+        date = cal.next_day(date)
+    run = model.run(START, date, state=booted, verbose=False)
     for f in day.prog._fields:
         assert torch.equal(getattr(day.prog, f), getattr(run.prog, f)), f
     assert torch.equal(day.sppt.spec, run.sppt.spec)
+
+
+@pytest.mark.parametrize("checkpoint_every, ahead", [(0, 2), (1, 0)])
+def test_run_enqueues_a_day_before_checking_the_one_before(
+        model, booted, tmp_path, monkeypatch, checkpoint_every, ahead):
+    """In a 3-day Model.run without checkpoints, days 2 and 3 are enqueued
+    while the day before still has its guard to run (``run.days_ahead``
+    counts 2); with a checkpoint every day, each day is checked before the
+    next is enqueued (0). The day's device work is left out: the order is
+    what is held here."""
+    order = []
+    cd = model.captured_day(booted, collect_output=True)
+    monkeypatch.setattr(cd, "_body", lambda: order.append("day"))
+    monkeypatch.setattr(model_module, "check_diagnostics",
+                        lambda diag, step: order.append(step)
+                        if step % model.cfg.nsteps == 0 else None)
+    counted = tracing.counters["run.days_ahead"]
+    model.run(START, DAY3, state=booted, verbose=False,
+              checkpoint_every=checkpoint_every,
+              checkpoint_dir=str(tmp_path))
+    assert tracing.counters["run.days_ahead"] - counted == ahead
+    assert order == (["day", "day", 36, "day", 72, 108] if ahead else
+                     ["day", 36, "day", 72, "day", 108])
+
+
+@pytest.mark.parametrize("checkpoint_every", [1, 3])
+def test_run_raises_at_the_step_out_of_range(bc, booted, tmp_path,
+                                             monkeypatch, checkpoint_every):
+    """Step 47, in day 2 of a 3-day Model.run at nsteps_out 9, out of
+    range: the run raises InstabilityError naming step 47 after the writer
+    calls for exactly the steps before it, with no checkpoint of day 2,
+    whether day 3 was enqueued already (a checkpoint every 3 days) or not
+    (every day). The day's device work is left out; its zeros are out of
+    range, and only step 47 is checked."""
+    m = Model(t30(sppt_on=True, nsteps_out=9, **SMALL), device="cpu",
+              bc_arrays=bc)
+    cd = m.captured_day(booted, collect_output=True, grids=True)
+    monkeypatch.setattr(cd, "_body", lambda: None)
+    monkeypatch.setattr(model_module, "check_diagnostics",
+                        lambda diag, step: check_diagnostics(diag, step)
+                        if step == 47 else None)
+    calls = []
+    with pytest.raises(InstabilityError, match="at step 47:"):
+        m.run(START, DAY3, output_writer=lambda step, *a: calls.append(step),
+              verbose=False, state=booted,
+              checkpoint_every=checkpoint_every,
+              checkpoint_dir=str(tmp_path))
+    assert calls == [0, 9, 18, 27, 36, 45]
+    assert os.listdir(tmp_path) == \
+        (["ckpt_198201020000.npz"] if checkpoint_every == 1 else [])
 
 
 def test_checkpoint_roundtrip(tmp_path, model, booted):

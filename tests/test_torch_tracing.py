@@ -161,10 +161,12 @@ def test_run_writes_its_day_spans_in_order(model, tmp_path):
               checkpoint_dir=str(tmp_path))
     ev = since(t0)
     sp = sorted(spans(ev), key=lambda e: e.start)
-    day = ["day.dates", "day.draw", "day.replay", "day.fetch", "day.guard",
-           "day.write"]
+    # day 2 is enqueued before day 1 is fetched, checked and written
+    enqueue = ["day.dates", "day.draw", "day.replay"]
+    finish = ["day.fetch", "day.guard", "day.write"]
     assert [e.name[len(tracing.PREFIX):] for e in sp] == \
-        ["call.run", "day.write"] + day + day + ["day.checkpoint"]
+        ["call.run", "day.write"] + enqueue + enqueue + finish + finish \
+        + ["day.checkpoint"]
     run = sp[0]
     guards = {e.seq for e in sp if e.name == "speedy.day.guard"}
     for e in sp[1:]:
