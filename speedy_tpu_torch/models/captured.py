@@ -77,9 +77,9 @@ ACC_FLUXES = ("precnv", "precls", "olr", "tsr", "ssr")
 def host_sync():
     """Marks a deliberate host synchronisation (the guard's extrema once a
     chunk, a day's output, the capture): under
-    ``torch.cuda.set_sync_debug_mode("error")``, which the GPU tests and
-    chip_smoke.py set around whole runs, any other synchronisation
-    raises."""
+    ``torch.cuda.set_sync_debug_mode("error")``, which the GPU tests
+    (tests/test_torch_gpu.py) set around whole runs, any other
+    synchronisation raises."""
     if not torch.cuda.is_available():
         yield
         return

@@ -44,8 +44,8 @@ from ..utils import calendar as cal
 from ..utils import tracing
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.diagnostics import (Diagnostics, check_days,
-                                 compute_diagnostics, check_diagnostics,
-                                 format_diagnostics)
+                                 compute_diagnostics, first_bad,
+                                 format_diagnostics, step_error, step_rows)
 from . import boundaries as bnd
 from . import coupling
 from .axes import level as L, levels
@@ -588,10 +588,11 @@ class Model:
           checked, written and checkpointed before anything later is
           enqueued, so a checkpoint (and the SST-anomaly window saved with
           it) and the returned state are that day's end;
-        * the guard checks the steps in order and the writer is called in
-          order, so a step out of range raises InstabilityError naming it
-          after the writer calls for exactly the steps before it; the day
-          enqueued after it is never checked, written or returned;
+        * the guard checks a day's steps at once and the writer is called
+          in step order up to the first step out of range, which raises
+          InstabilityError naming it after the writer calls for exactly
+          the steps before it; the day enqueued after it is never
+          checked, written or returned;
         * each day's arrays are new host memory: no later day overwrites
           what the writer was given.
 
@@ -635,21 +636,27 @@ class Model:
         def finish(first, dates, fetch, row):
             """The guard, printout and writer calls of a day whose steps
             count on from ``first``: ``fetch()`` gives its outputs on the
-            host, ``row`` maps a written step to its row of the fields."""
+            host, ``row`` maps a written step to its row of the fields.
+            The guard checks the day's steps at once; the printout and
+            the writer then run in step order up to the first step out
+            of range, which raises."""
             day = fetch()
             with tracing.span("day.guard"):
-                for i, date in enumerate(dates):
-                    step = first + i + 1
-                    diag_i = Diagnostics(*[day[f][i]
-                                           for f in Diagnostics._fields])
-                    if step % cfg.nstdia == 0 and verbose:
-                        print(format_diagnostics(diag_i, step))
-                    check_diagnostics(diag_i, step)
-                    if i in row:
-                        with tracing.span("day.write"):
-                            output_writer(step, date, start,
-                                          {k: day[k][row[i]]
-                                           for k in GRID_FIELDS})
+                rows = step_rows(day)
+                bad = first_bad(rows)
+            stop = len(dates) if bad is None else bad[0]
+            for i, date in enumerate(dates):
+                step = first + i + 1
+                if step % cfg.nstdia == 0 and verbose:
+                    print(format_diagnostics(
+                        Diagnostics(*[day[f][i] for f in Diagnostics._fields]),
+                        step))
+                if i == stop:
+                    raise step_error(step, rows[i])
+                if i in row:
+                    with tracing.span("day.write"):
+                        output_writer(step, date, start,
+                                      {k: day[k][row[i]] for k in GRID_FIELDS})
 
         day_count = 0
         ahead = None   # the day enqueued whose guard and writes are to run

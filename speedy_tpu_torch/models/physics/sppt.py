@@ -12,7 +12,7 @@ like the JAX key: advancing from one state twice gives the same pattern.
 A caller may instead pass ``noise``, a callable ``noise(shape)`` returning
 standard-normal draws (any array type), which then supplies every
 innovation in order: the parity tests feed the JAX key chain's draws
-through it, chip_smoke.py a numpy seed.
+through it, tests/test_torch_gpu.py a numpy seed.
 
 A staged day (models/captured.py) draws all of its updates' innovations
 ahead into a static buffer (``draw_day``), with the same calls in the same

@@ -47,7 +47,7 @@ from ..models.model import (GRID_FIELDS, Model, ModelState, gridded_fields,
 from ..models.physics.sppt import Noise, init_sppt_state, stack_states
 from ..utils import calendar as cal
 from ..utils import tracing
-from ..utils.diagnostics import InstabilityError, bad_days
+from ..utils.diagnostics import InstabilityError, first_bad
 
 
 def broadcast_state(state: ModelState, n: int) -> ModelState:
@@ -201,17 +201,17 @@ class Ensemble:
         return cd.result(), end
 
     def guard(self, rows: np.ndarray, first_day: int) -> None:
-        """The stability guard (``diagnostics.bad_days``) on a chunk's rows
+        """The stability guard (``diagnostics.first_bad``) on a chunk's rows
         [days, 4, members, kx] of this rank's members, days counted from
         ``first_day``: InstabilityError names the first rejected day and
         its global member. Over a mesh's process group, one all-reduce
         (MIN) of that (day, member), coded day x n_members + member, makes
         every rank raise at the same chunk, naming the same member and
         day, or none."""
-        hits = np.argwhere(bad_days(rows))
+        bad = first_bad(rows)
         none = rows.shape[0] * self.n
-        code = none if len(hits) == 0 else \
-            int(hits[0][0]) * self.n + self.members.start + int(hits[0][1])
+        code = none if bad is None else \
+            bad[0] * self.n + self.members.start + bad[1]
         if self.mesh is not None and self.mesh.backend is not None:
             t = torch.tensor([code], dtype=torch.int64,
                              device=self.mesh.host_device())

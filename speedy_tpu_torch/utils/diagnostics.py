@@ -3,7 +3,7 @@
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Sequence
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -39,22 +39,6 @@ def compute_diagnostics(sc: sp.SpectralConsts, vor: torch.Tensor,
     return Diagnostics(reke=eke(vor), deke=eke(div), tmean=tmean)
 
 
-def check_diagnostics(diag: Diagnostics, istep: int,
-                      unit: str = "step") -> None:
-    """Host-side guard: abort on instability (diagnostics.f90:59-69),
-    naming the ``unit`` (step or day) ``istep``."""
-    reke, deke, tmean = (np.asarray(torch.as_tensor(a).cpu())
-                         for a in diag)
-    bad = (np.any(reke > EKE_MAX) or np.any(deke > EKE_MAX)
-           or np.any(tmean < TMEAN_MIN) or np.any(tmean > TMEAN_MAX)
-           or not (np.all(np.isfinite(reke)) and np.all(np.isfinite(deke))
-                   and np.all(np.isfinite(tmean))))
-    if bad:
-        raise InstabilityError(
-            f"Model variables out of accepted range at {unit} {istep}: "
-            f"reke={reke}, deke={deke}, temp={tmean}")
-
-
 def guard_extrema(diags: Sequence[Diagnostics]) -> torch.Tensor:
     """A day's extrema for the guard, [4, ..., kx] on the diagnostics'
     device: max reke, max deke, min tmean, max tmean over the day's
@@ -66,27 +50,52 @@ def guard_extrema(diags: Sequence[Diagnostics]) -> torch.Tensor:
 
 
 def bad_days(guard: np.ndarray) -> np.ndarray:
-    """Which rows the guard rejects, from consecutive days' extrema [days,
-    4, ..., kx] (``guard_extrema`` of each day, on the host): bool [days,
-    ...], true where a level is out of ``check_diagnostics``' ranges or
-    not finite (per member of an ensemble)."""
+    """The guard (diagnostics.f90:59-69): which rows it rejects, from rows
+    [n, 4, ..., kx] of max reke, max deke, min tmean and max tmean, on the
+    host: consecutive days' extrema (``guard_extrema`` of each day) or a
+    day's steps (each step's tmean as both min and max). Bool [n, ...],
+    true where a level is out of the accepted range or not finite (per
+    member of an ensemble)."""
     reke, deke, tmin, tmax = (guard[:, i] for i in range(4))
     bad = ((reke > EKE_MAX) | (deke > EKE_MAX) | (tmin < TMEAN_MIN)
            | (tmax > TMEAN_MAX) | ~np.isfinite(guard).all(axis=1))
     return bad.any(axis=-1)
 
 
+def first_bad(guard: np.ndarray) -> Optional[Tuple[int, ...]]:
+    """The index of the first row ``bad_days`` rejects: (row,), or (row,
+    member) for an ensemble's rows; None if it rejects none."""
+    hits = np.argwhere(bad_days(guard))
+    return tuple(int(i) for i in hits[0]) if len(hits) else None
+
+
+def step_rows(diags) -> np.ndarray:
+    """A day's steps as the guard's rows [n, 4, kx], from every step's
+    diagnostics on the host (``diags[f]`` [n, kx] for each field of
+    Diagnostics): reke, deke, tmean, tmean."""
+    return np.stack([diags[f] for f in ("reke", "deke", "tmean", "tmean")],
+                    axis=1)
+
+
 def check_days(guard: np.ndarray, first_day: int = 0) -> None:
     """The guard on consecutive days' extrema [days, 4, ..., kx]
     (``bad_days``), naming the first day out of range, counted from
     ``first_day``."""
-    hits = np.argwhere(bad_days(guard))
-    if len(hits):
-        d = int(hits[0][0])
-        g = guard[d]
+    bad = first_bad(guard)
+    if bad is not None:
+        g = guard[bad[0]]
         raise InstabilityError(
-            f"Model variables out of accepted range at day {first_day + d}: "
-            f"reke={g[0]}, deke={g[1]}, temp min={g[2]}, max={g[3]}")
+            f"Model variables out of accepted range at day "
+            f"{first_day + bad[0]}: reke={g[0]}, deke={g[1]}, "
+            f"temp min={g[2]}, max={g[3]}")
+
+
+def step_error(step: int, g: np.ndarray) -> InstabilityError:
+    """The guard's error for step ``step``, whose row (``step_rows``)
+    ``g`` it rejected."""
+    return InstabilityError(
+        f"Model variables out of accepted range at step {step}: "
+        f"reke={g[0]}, deke={g[1]}, temp={g[2]}")
 
 
 def format_diagnostics(diag: Diagnostics, istep: int) -> str:

@@ -259,15 +259,35 @@ def test_guard_names_the_failing_day_of_a_chunk(models, monkeypatch):
     m.run_fast(START, 1, state=s0)
 
 
-@pytest.mark.parametrize("bad_day", [0, 2])
-def test_check_days_names_the_first_bad_day(bad_day):
-    rows = np.zeros((3, 4, 5))
-    rows[:, 2:] = 250.0
-    rows[bad_day:, 3] = np.nan
-    with pytest.raises(diagnostics.InstabilityError,
-                       match=f"at day {10 + bad_day}:"):
-        diagnostics.check_days(rows, first_day=10)
-    diagnostics.check_days(rows[:bad_day], first_day=10)
+@pytest.mark.parametrize("unit,bad", [("day", 0), ("day", 2), ("step", 10)],
+                         ids=["0", "2", "step"])
+def test_check_days_names_the_first_bad_day(unit, bad):
+    """Rows of 3 days' extrema with the temperature's max not finite
+    from day ``bad`` on: ``check_days`` names the first bad day. Or a
+    day's 36 steps as the guard's rows (``step_rows``: each step's
+    temperature as its min and max) with one step's temperature at one
+    level not finite: ``first_bad`` finds that step's row alone and
+    ``step_error`` names it by step."""
+    if unit == "day":
+        rows = np.zeros((3, 4, 5))
+        rows[:, 2:] = 250.0
+        rows[bad:, 3] = np.nan
+        with pytest.raises(diagnostics.InstabilityError,
+                           match=f"at day {10 + bad}:"):
+            diagnostics.check_days(rows, first_day=10)
+        diagnostics.check_days(rows[:bad], first_day=10)
+        return
+    tmean = np.full((36, 5), 250.0)
+    tmean[bad, 3] = np.nan
+    rows = diagnostics.step_rows({"reke": np.zeros((36, 5)),
+                                  "deke": np.zeros((36, 5)),
+                                  "tmean": tmean})
+    assert diagnostics.first_bad(rows) == (bad,)
+    assert diagnostics.first_bad(np.delete(rows, bad, axis=0)) is None
+    err = diagnostics.step_error(10 + bad, rows[bad])
+    assert str(err).startswith(
+        f"Model variables out of accepted range at step {10 + bad}: "
+        "reke=[0. 0. 0. 0. 0.], deke=[0. 0. 0. 0. 0.], temp=[250.")
 
 
 @pytest.mark.parametrize("max_chunk_days", [1, 2])

@@ -251,6 +251,30 @@ def test_restart_takes_the_checkpoint_start(checkpointed, tmp_path):
     assert f["time"][0][0] == np.float32(37 * 24.0 / 36)
 
 
+def test_auto_resume_takes_the_newest_checkpoint(checkpointed, tmp_path):
+    """--auto-resume picks the newest checkpoint of --checkpoint-dir (an
+    older copy beside it is passed over) and continues as --restart-from
+    does; with no checkpoints it starts fresh."""
+    import shutil
+    ck = tmp_path / "ck"
+    ck.mkdir()
+    newest = ck / "ckpt_198201020000.npz"
+    shutil.copy(checkpointed[0] / "ck" / newest.name, newest)
+    shutil.copy(newest, ck / "ckpt_198201010000.npz")
+    rc, text = run_main(cli.main, [
+        "run", "--end", "1982-01-02T01:20", "--auto-resume",
+        "--checkpoint-dir", str(ck), "--output-dir", str(tmp_path / "out")]
+        + PORT)
+    assert rc == 0
+    assert f"resuming from {newest} at " in text and "(step 36)" in text
+    assert sorted(os.listdir(tmp_path / "out")) == [
+        "198201020040.nc", "198201020120.nc"]
+    rc, text = run_main(cli.main, [
+        "run", "--no-output", "--end", "1982-01-01T00:40", "--auto-resume",
+        "--checkpoint-dir", str(tmp_path / "none")] + PORT)
+    assert rc == 0 and "auto-resume: no checkpoints in " in text
+
+
 def test_matmul_precision_and_profile(checkpointed):
     d, text, precision = checkpointed
     assert precision == "high"

@@ -15,7 +15,7 @@ memory):
 
 Bounds are max |port - jax| / max |jax| per field (tests/torch_parity.py).
 The CUDA kernel's reference-order variant is held against this chain on
-the card (tests/test_torch_gpu.py, chip_smoke.py [3]).
+the card (tests/test_torch_gpu.py).
 """
 import numpy as np
 import pytest

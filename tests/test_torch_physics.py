@@ -7,7 +7,7 @@ speedy_tpu's grid_physics_core (and once through its Pallas kernel in
 interpret mode) and through the port's grid_physics_core, which is the
 CPU path of the column-physics kernel's wrapper. Bound: max |port - jax| /
 max |jax| <= 1e-12 per output. The kernel itself runs only on a GPU
-(tests/test_torch_gpu.py and chip_smoke.py hold it against this chain).
+(tests/test_torch_gpu.py holds it against this chain).
 """
 import numpy as np
 import pytest

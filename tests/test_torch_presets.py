@@ -4,7 +4,7 @@ packages regrid from its 48 x 96 grid to 128 x 256 (the JAX model reads
 HDF5 copies of it, the port the same arrays in memory). Bound: max
 |port - jax| / max |jax| <= 1e-10 per field of each state group after the
 boot and after the steps. The other presets run on the card
-(chip_smoke.py [12]); their grids and tables are held by
+(tests/test_torch_gpu.py); their grids and tables are held by
 tests/test_torch_spectral.py and tests/test_torch_physics.py."""
 import numpy as np
 import pytest

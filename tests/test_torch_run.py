@@ -34,8 +34,7 @@ from speedy_tpu_torch.models.model import Model
 from speedy_tpu_torch.utils import calendar as cal
 from speedy_tpu_torch.utils import tracing
 from speedy_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
-from speedy_tpu_torch.utils.diagnostics import (InstabilityError,
-                                                check_diagnostics)
+from speedy_tpu_torch.utils.diagnostics import InstabilityError, first_bad
 from speedy_tpu_torch.utils.output import NetCDFWriter
 from speedy_tpu_torch.utils.synthetic_bc import (synthetic_boundaries,
                                                  write_boundary_files)
@@ -242,12 +241,15 @@ def test_run_enqueues_a_day_before_checking_the_one_before(
     counts 2); with a checkpoint every day, each day is checked before the
     next is enqueued (0). The day's device work is left out: the order is
     what is held here."""
-    order = []
+    order, checked = [], []
     cd = model.captured_day(booted, collect_output=True)
     monkeypatch.setattr(cd, "_body", lambda: order.append("day"))
-    monkeypatch.setattr(model_module, "check_diagnostics",
-                        lambda diag, step: order.append(step)
-                        if step % model.cfg.nsteps == 0 else None)
+
+    def check(rows):   # the day's check, recorded by its last step
+        checked.append(len(rows))
+        order.append(sum(checked))
+
+    monkeypatch.setattr(model_module, "first_bad", check)
     counted = tracing.counters["run.days_ahead"]
     model.run(START, DAY3, state=booted, verbose=False,
               checkpoint_every=checkpoint_every,
@@ -265,14 +267,22 @@ def test_run_raises_at_the_step_out_of_range(bc, booted, tmp_path,
     calls for exactly the steps before it, with no checkpoint of day 2,
     whether day 3 was enqueued already (a checkpoint every 3 days) or not
     (every day). The day's device work is left out; its zeros are out of
-    range, and only step 47 is checked."""
+    range, and of each day's single check only step 47's row counts."""
     m = Model(t30(sppt_on=True, nsteps_out=9, **SMALL), device="cpu",
               bc_arrays=bc)
     cd = m.captured_day(booted, collect_output=True, grids=True)
     monkeypatch.setattr(cd, "_body", lambda: None)
-    monkeypatch.setattr(model_module, "check_diagnostics",
-                        lambda diag, step: check_diagnostics(diag, step)
-                        if step == 47 else None)
+    checked = []
+
+    def check(rows):   # step 47's row alone, in the day that holds it
+        first = sum(checked)
+        checked.append(len(rows))
+        i = 47 - first - 1
+        if not 0 <= i < len(rows) or first_bad(rows[i:i + 1]) is None:
+            return None
+        return (i,)
+
+    monkeypatch.setattr(model_module, "first_bad", check)
     calls = []
     with pytest.raises(InstabilityError, match="at step 47:"):
         m.run(START, DAY3, output_writer=lambda step, *a: calls.append(step),

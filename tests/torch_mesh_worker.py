@@ -1,8 +1,7 @@
 """One rank of a sharded ensemble (parallel/mesh.py, Ensemble(mesh=)),
 started by torchrun; tests/test_torch_mesh.py and test_torch_mesh_sp*.py
-run it on the CPU over Gloo, chip_smoke.py [15], [18] and
-tests/test_torch_gpu.py with every rank on one GPU (``--device cuda:0``,
-Gloo):
+run it on the CPU over Gloo, tests/test_torch_gpu.py with every rank on
+one GPU (``--device cuda:0``, Gloo):
 
     python -m torch.distributed.run --standalone --nproc-per-node 2 \\
         tests/torch_mesh_worker.py OUT_DIR [--device cpu] [--grid t21] \\
