@@ -28,7 +28,8 @@ Nothing here opens a profiler range: a trace's reader would count its
 device-side counterpart as device work. The counters kept: ``k1.launches``,
 ``k1.launches_sw``, ``k1.launches_reflw``, ``k1.launches_reflw_sw``
 (models/physics/fused.py), ``k2.launches_syn``, ``k2.launches_ana``
-(ops/fused_transforms.py), ``spectral.allreduces`` (ops/spectral.py),
+(ops/fused_transforms.py), ``step.update_launches`` (the step's spectral
+update, models/time_stepping.py), ``spectral.allreduces`` (ops/spectral.py),
 ``d2h.bytes`` (a staged day's host copies), ``output.grid_steps`` (the
 steps whose gridded fields ``Model.run`` brought to the host, an event a
 day), ``run.days_ahead`` (a day ``Model.run`` enqueued while the day

@@ -9,7 +9,10 @@ In order: the column-physics kernel K1 (both LW orders, every built level
 count and preset, members as extra columns, band shapes) against its
 plain PyTorch chain on the same CUDA tensors (field-normalised error,
 fp64 <= 1e-12, fp32 <= 1e-4), its launch plan and its refusal of bad
-inputs; the spectral-transform kernels K2a/K2b against their einsum chain
+inputs; the spectral-update kernel against its plain twin (torch.equal in
+fp32 and fp64, strided tendencies, members), its refusal of bad inputs,
+its one launch a replayed step and a boot and day through it equal to the
+twin's; the spectral-transform kernels K2a/K2b against their einsum chain
 (fp64 <= 1e-12, fp32 <= 1e-5) at every preset, batch class and built
 tile; the CUDA model against the CPU model after boot + 6 fp64 steps
 (<= 1e-10), and a replayed day's K1 launches at every preset and member
@@ -35,6 +38,7 @@ from speedy_tpu_torch import bench_physics as bp
 from speedy_tpu_torch.config import from_preset, t30
 from speedy_tpu_torch.geometry import build_geometry_np
 from speedy_tpu_torch.models.captured import leaves
+from speedy_tpu_torch.models import time_stepping as ts
 from speedy_tpu_torch.models.model import Model, one_step
 from speedy_tpu_torch.models.physics import fused
 from speedy_tpu_torch.ops import fused_transforms as ft
@@ -47,7 +51,7 @@ from torch_gpu_cases import (TRANSFORM_BOUND, accumulate_vs_eager,
                              band_inputs, booted, capture_day, json_lines,
                              k1_in_trace, program, replay_vs_eager,
                              side_eager_day, sppt_noise, sst_replay_vs_eager,
-                             sync_error, trace)
+                             sync_error, trace, update_case)
 from torch_run_checks import expected_calls, fetch_bytes, run_against_buffer
 
 START = cal.Datetime(1982, 1, 1)
@@ -227,6 +231,106 @@ def test_k1_refuses_bad_input(cuda, bc, case):
     with pytest.raises(ValueError):
         fused.launch_kernel(m.cfg, True, ins, block)
     assert counters["k1.launches"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the spectral-update kernel
+# ---------------------------------------------------------------------------
+
+UPDATE_GRIDS = {"t30": ("t30", {}), "t170": ("t170", {}),
+                "t21_kx5": ("t30", dict(trunc=21, ix=64, il=32, kx=5))}
+
+
+def update_kernel_name(name):
+    return "spectral_step_elementwise_kernel" in name
+
+
+@pytest.mark.parametrize("grid,members", [("t30", None), ("t30", 64),
+                                          ("t170", None), ("t21_kx5", None)])
+@pytest.mark.parametrize("precision", ["fp64", "fp32"])
+def test_spectral_update_kernel_equals_twin(cuda, grid, members, precision):
+    """One launch, torch.equal to the plain twin on the same CUDA tensors
+    (the tendencies strided as the step leaves them), for the boot's
+    forward step (j1=1, eps=0) and the filtered leapfrog (j1=2, rob)."""
+    preset, kw = UPDATE_GRIDS[grid]
+    cfg = from_preset(preset, precision=precision, **kw)
+    sc, dc, ic, state, tend, corr = update_case(cfg, members, "cuda")
+    for j1, eps in ((1, 0.0), (2, cfg.rob)):
+        reset()
+        got = ts.launch_update(cfg, sc, dc, ic, state, tend, corr, j1,
+                               2 * cfg.delt, eps)
+        want = ts.spectral_update_plain(cfg, sc, dc, ic, state, tend, corr,
+                                        j1, 2 * cfg.delt, eps)
+        torch.cuda.synchronize()
+        assert counters["step.update_launches"] == 1
+        for f, a, b in zip(got._fields, got, want):
+            assert a.shape == b.shape and a.is_contiguous(), f
+            assert torch.equal(a, b), (j1, f, (a - b).abs().max().item())
+
+
+@pytest.mark.parametrize("case", ["dtype", "mixed", "shape", "members",
+                                  "table", "cpu", "j1"])
+def test_spectral_update_kernel_refuses_bad_input(cuda, case):
+    cfg = t30()
+    sc, dc, ic, state, tend, corr = update_case(cfg, 4, "cuda")
+    tend, j1 = list(tend), 2
+    if case == "dtype":
+        state = state._replace(vor=state.vor.half())
+    elif case == "mixed":
+        tend[2] = tend[2].double()
+    elif case == "shape":
+        tend[1] = tend[1][..., :-1, :, :]
+    elif case == "members":
+        tend[0] = tend[0][:2]
+    elif case == "table":
+        dc = dc._replace(dmp=dc.dmp.t().contiguous().t())
+    elif case == "cpu":
+        corr = corr._replace(qcorh=corr.qcorh.cpu())
+    else:
+        j1 = 3
+    reset()
+    with pytest.raises(ValueError):
+        ts.launch_update(cfg, sc, dc, ic, state, tuple(tend), corr, j1,
+                         2 * cfg.delt, cfg.rob)
+    assert counters["step.update_launches"] == 0
+
+
+def test_replayed_day_holds_one_update_a_step(cuda, bc):
+    """A replayed T30 day: the counter and the profiler both see one
+    update launch a step, and the step has at most 370 kernels."""
+    m = Model(t30(), device="cuda", bc_arrays=bc)
+    cd, _, _ = capture_day(m, m.initialize(START), START)
+    nsteps = m.cfg.nsteps
+    assert cd.counts["step.update_launches"] == nsteps
+    reset()
+    names = [n for n, _ in trace(lambda: cd.advance(0))[1]
+             if not n.startswith(("Memcpy", "Memset"))]
+    assert counters["step.update_launches"] == nsteps
+    assert sum(map(update_kernel_name, names)) == nsteps
+    assert len(names) <= 370 * nsteps, len(names) / nsteps
+
+
+@pytest.mark.parametrize("precision", ["fp32", "fp64"])
+def test_kernel_boot_and_day_equal_the_twins(cuda, bc, precision,
+                                             monkeypatch):
+    """The boot and a replayed day through the kernel equal, bit for bit,
+    the boot and the eager day with the step's update in the plain twin
+    (the code before the kernel)."""
+    m = Model(t30(precision=precision), device="cuda", bc_arrays=bc)
+    reset()
+    state = m.initialize(START)
+    assert counters["step.update_launches"] == 2
+    fast = m.run_fast(START, 1, state=state)
+    monkeypatch.setattr(ts, "spectral_update", ts.spectral_update_plain)
+    reset()
+    twin = m.initialize(START)
+    assert counters["step.update_launches"] == 0
+    assert all(torch.equal(a, b) for a, b in zip(leaves(state),
+                                                 leaves(twin)))
+    twin, _ = m.run_day(twin, START, START)
+    differ = [i for i, (a, b) in enumerate(zip(leaves(fast), leaves(twin)))
+              if not torch.equal(a, b)]
+    assert not differ, differ
 
 
 def spectral_case(preset, precision, batch):

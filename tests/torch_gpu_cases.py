@@ -1,5 +1,6 @@
-"""The cases of tests/test_torch_gpu.py that run a day or trace one: a
-booted state and its captured day, a replayed day against the eager
+"""The cases of tests/test_torch_gpu.py that run a day or trace one: the
+spectral update's inputs in the step's strided layouts, a booted state
+and its captured day, a replayed day against the eager
 run_day on a side stream, the SST-anomaly and accumulating variants
 against theirs, K1's inputs cut to a latitude band, the kernels of a
 call in a profiler trace, and a program of the port run through its
@@ -20,10 +21,17 @@ import time
 import numpy as np
 import torch
 
+from speedy_tpu_torch.geometry import build_geometry_np
 from speedy_tpu_torch.models.captured import (ACC_FLUXES, ACC_GRIDS, leaves,
                                               pool_bytes, step_sum)
 from speedy_tpu_torch.models.model import GRID_FIELDS, gridded_fields, run_day
+from speedy_tpu_torch.models.hdiffusion import (build_diffusion,
+                                                build_diffusion_np)
+from speedy_tpu_torch.models.implicit import build_implicit
 from speedy_tpu_torch.models.physics import fused
+from speedy_tpu_torch.models.state import PrognosticState
+from speedy_tpu_torch.models.time_stepping import OrographicCorrection
+from speedy_tpu_torch.ops import spectral as sp
 from speedy_tpu_torch.parallel.ensemble import Ensemble
 from speedy_tpu_torch.utils import calendar as cal
 from speedy_tpu_torch.utils.diagnostics import Diagnostics
@@ -65,6 +73,48 @@ def trace(fn):
                 if e.device_type == torch.autograd.DeviceType.CPU
                 and e.name.startswith("aten::"))
     return wall, kernels, n_ops
+
+
+def update_case(cfg, members, device, seed=0):
+    """The spectral update's inputs for ``cfg`` (``members`` leading, or
+    one model for None) on ``device``: (sc, dc, ic for 2 dt, state,
+    tendencies, corrections). The state and the corrections are seeded
+    normals; the tables are the model's. The tendencies lie as the step
+    leaves them: vordt and tdt slices of one buffer, divdt with the level
+    axis inside (m, n) and the members innermost (the implicit solve's
+    output), psdt with re/im before n, trdt whole; qcorh per member with
+    re/im before n, tcorh shared."""
+    geom = build_geometry_np(cfg)
+    sc = sp.build_spectral(cfg, geom, device)
+    dc = build_diffusion(cfg, geom, device)
+    ic = build_implicit(cfg, geom, build_diffusion_np(cfg, geom),
+                        2 * cfg.delt, device)
+    rng = np.random.default_rng(seed)
+    lead = () if members is None else (members,)
+    m1 = 1 if members is None else members
+    kx, mx, nx, ntr = cfg.kx, cfg.mx, cfg.nx, cfg.ntr
+
+    def normal(*shape):
+        return torch.as_tensor(rng.standard_normal(shape), dtype=cfg.rdtype,
+                               device=device)
+
+    def lead_view(x):               # [M, ...] -> lead + [...]
+        return x if members is not None else x[0]
+
+    level = (*lead, 2, kx, mx, nx, 2)
+    state = PrognosticState(vor=normal(*level), div=normal(*level),
+                            t=normal(*level), ps=normal(*lead, 2, mx, nx, 2),
+                            tr=normal(*lead, 2, ntr, kx, mx, nx, 2))
+    both = normal(m1, 2, kx, mx, nx, 2)
+    tend = (lead_view(both[:, 0]),
+            lead_view(normal(mx, nx, m1, kx, 2).permute(2, 3, 0, 1, 4)),
+            lead_view(both[:, 1]),
+            lead_view(normal(mx, 2, nx, m1).permute(3, 0, 2, 1)),
+            normal(*lead, ntr, kx, mx, nx, 2))
+    corr = OrographicCorrection(
+        tcorh=normal(mx, nx, 2),
+        qcorh=lead_view(normal(mx, 2, nx, m1).permute(3, 0, 2, 1)))
+    return sc, dc, ic, state, tend, corr
 
 
 def booted(model, start, members=None):
